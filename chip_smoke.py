@@ -2,17 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-then drives the port's main path at a realistic size: 32 MiB of synthetic
-book titles (seed 0), an OnPair16 dictionary trained on an 8 MiB sample, the
-whole corpus encoded on the card through ``Encoder`` (the encode kernel),
-and every string read back once through ``CompressedStringStore.multiget``
-(the decode kernel) in shuffled 1024-id batches. Afterwards it holds each
-kernel against its plain PyTorch version on the card, exactly, at the main
-path's shapes and at edge cases, times both with CUDA events, and prints the
-numbers beside the card's name and power limit. Every failure raises; the
-last line is the result the caller reads. Without a card it exits non-zero
-and prints no result. Imports nothing of JAX and nothing of ``repro``.
+Builds the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with one
+nvcc command, then drives the port's paths at a realistic size, 32 MiB of
+synthetic book titles (seed 0), each with every kernel's launch count and
+every plain version's call count set to 0 just before it and read just
+after:
+
+1. read path: an OnPair16 dictionary trained on an 8 MiB sample, the whole
+   corpus encoded through ``Encoder`` (the encode kernel), and every string
+   read back once through ``CompressedStringStore.multiget`` (the decode
+   kernel) in shuffled 1024-id batches;
+2. full decompression: ``Decoder.decode_all`` of the whole corpus (the
+   stream kernel, one launch);
+3. scan: ``CompressedStringStore.scan`` over every id, in segment-sized
+   ranges and in one range (the stream kernel);
+4. writable store: a ``MutableStringStore`` over the first half, the second
+   half appended by ``extend`` in 1024-string batches with seals running
+   off-thread (the encode kernel), multigets and a scan across the
+   sealed/tail boundary (the decode and stream kernels), and one
+   ``compact()`` (all three).
+
+Every string each path returns is checked against its source. Afterwards it
+profiles a window of each path (device busy share), holds each kernel
+against its plain PyTorch version on the card, exactly, at the paths' shapes
+and at edge cases, times both with CUDA events and torch.profiler, and
+prints the numbers beside the card's name and power limit. Every failure
+raises; the last line is the result the caller reads. Without a card it
+exits non-zero and prints no result. Imports nothing of JAX and nothing of
+``repro``.
 """
 
 from __future__ import annotations
@@ -32,8 +49,10 @@ DATA_BYTES = 32 << 20
 SAMPLE_BYTES = 8 << 20
 SEED = 0
 MULTIGET_IDS = 1024
+EXTEND_BATCH = 1024
+STRINGS_PER_SEGMENT = 4096
 PARITY_STRINGS = 4096
-ENCODE_WINDOW = 1 << 16  # strings encoded under the profiler
+ENCODE_WINDOW = 1 << 16  # strings encoded (and appended) under the profiler
 MULTIGET_WINDOW = 200  # 1024-id batches read under the profiler
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
@@ -58,15 +77,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-#: kernel symbols as the profiler names them
+#: kernel symbols as the profiler names them (the stream kernel's three
+#: passes share a prefix)
 KERNEL_SYMBOLS = {"decode_compact": "decode_compact_kernel",
-                  "encode_batch": "encode_batch_kernel"}
+                  "encode_batch": "encode_batch_kernel",
+                  "decode_tokens": "decode_stream_"}
+#: device kernels per wrapper call
+PASSES = {"decode_compact": 1, "encode_batch": 1, "decode_tokens": 3}
 
 
 def device_ms(fn, symbol: str, reps: int) -> float | None:
-    """Mean device time per launch of the CUDA kernel named ``symbol``, from
-    torch.profiler: the kernel alone, without the host's launch overhead.
-    None when the profiler recorded no device time for it."""
+    """Mean device time per call of ``fn`` spent in the CUDA kernels whose
+    names hold ``symbol``, from torch.profiler: the kernels alone, without
+    the host's launch overhead. None when the profiler recorded no device
+    time for them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -75,12 +99,9 @@ def device_ms(fn, symbol: str, reps: int) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if symbol in ev.key and ev.count:
-            total_us = getattr(ev, "self_device_time_total", 0)
-            if total_us > 0:
-                return total_us / ev.count / 1e3
-    return None
+    total_us = sum(getattr(ev, "self_device_time_total", 0)
+                   for ev in prof.key_averages() if symbol in ev.key and ev.count)
+    return total_us / reps / 1e3 if total_us > 0 else None
 
 
 def device_window(fn) -> tuple[float, dict[str, list]]:
@@ -119,20 +140,58 @@ def check_equal(name: str, case: str, got: torch.Tensor, want: torch.Tensor) -> 
                              f"max abs err {diff})")
 
 
+def check_strings(path: str, got: list[bytes], want: list[bytes]) -> None:
+    """Raise unless a path returned exactly its source strings."""
+    if len(got) != len(want):
+        raise AssertionError(f"{path}: {len(got)} strings, expected {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"{path}: string {i} differs from its source")
+
+
+class PathCounts:
+    """Launch counts of the kernels and call counts of their plain versions
+    over one driven path: zeroed by ``start``, read and checked by ``end``."""
+
+    def __init__(self, kernels: dict, plain: list):
+        self.kernels, self.plain = kernels, plain
+        self.total = dict.fromkeys(kernels, 0)
+
+    def start(self) -> None:
+        for fn in self.kernels.values():
+            fn.launches = 0
+        for fn in self.plain:
+            fn.calls = 0
+
+    def end(self, path: str, expect: list[str]) -> dict[str, int]:
+        launches = {name: fn.launches for name, fn in self.kernels.items()}
+        calls = sum(fn.calls for fn in self.plain)
+        log(path, f"launches {launches}; plain versions called {calls} times")
+        missing = [name for name in expect if launches[name] < 1]
+        if missing:
+            raise AssertionError(f"{path}: kernels of the path never launched: {missing}")
+        if calls:
+            raise AssertionError(f"{path}: the path called a plain version on the card")
+        for name, n in launches.items():
+            self.total[name] += n
+        return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.core.codec import Encoder
+    from repro_torch.core.api import CompressedCorpus
+    from repro_torch.core.codec import Decoder, Encoder
     from repro_torch.core.lpm import lpm_from_entries
     from repro_torch.core.metrics import throughput_mib_s
     from repro_torch.core.onpair import OnPairConfig, train_dictionary
     from repro_torch.core.packed import PackedDictionary
     from repro_torch.data.synth import load_dataset
     from repro_torch.kernels import _build, onpair_decode, onpair_encode, ops, ref
-    from repro_torch.store import CompressedStringStore
+    from repro_torch.store import CompressedStringStore, MutableStringStore
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -158,23 +217,26 @@ def main() -> int:
     t0 = time.perf_counter()
     strings = load_dataset("book_titles", DATA_BYTES, seed=SEED)
     raw_bytes = sum(map(len, strings))
-    log("data", f"book_titles: {len(strings)} strings, {raw_bytes} B, mean "
-        f"{raw_bytes / len(strings):.1f} B, made in {time.perf_counter() - t0:.1f} s")
+    n_all = len(strings)
+    log("data", f"book_titles: {n_all} strings, {raw_bytes} B, mean "
+        f"{raw_bytes / n_all:.1f} B, made in {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------------- 4. the main path
-    onpair_decode.decode_compact.launches = 0
-    onpair_encode.encode_batch.launches = 0
-    ref.decode_batch_ref.calls = 0
-    ref.encode_batch_ref.calls = 0
+    counts = PathCounts({"decode_compact": onpair_decode.decode_compact,
+                         "encode_batch": onpair_encode.encode_batch,
+                         "decode_tokens": onpair_decode.decode_tokens},
+                        [ref.decode_batch_ref, ref.encode_batch_ref,
+                         ref.decode_tokens_ref])
+
+    # --------------------------------------- 4.1 read path: encode + multiget
+    counts.start()
     ref_batches_before = ops._DECODE_BATCHES["ref"].value
     cuda_batches_before = ops._DECODE_BATCHES["cuda"].value
-
+    config = OnPairConfig.onpair16(sample_bytes=SAMPLE_BYTES, seed=SEED)
     t0 = time.perf_counter()
-    trained = train_dictionary(strings, OnPairConfig.onpair16(
-        sample_bytes=SAMPLE_BYTES, seed=SEED))
+    trained = train_dictionary(strings, config)
     dictionary = PackedDictionary.build(trained.entries)
     train_s = time.perf_counter() - t0
-    log("main", f"trained {dictionary.num_entries} entries from "
+    log("read", f"trained {dictionary.num_entries} entries from "
         f"{trained.scanned_bytes} sample bytes in {train_s:.1f} s; tables "
         f"{dictionary.resident_bytes} B")
 
@@ -182,11 +244,12 @@ def main() -> int:
     t0 = time.perf_counter()
     corpus = Encoder(dictionary, device=dev).encode(strings)
     encode_s = time.perf_counter() - t0
-    store = CompressedStringStore(dictionary, corpus, device=dev, cache_bytes=0)
+    store = CompressedStringStore(dictionary, corpus, device=dev, cache_bytes=0,
+                                  strings_per_segment=STRINGS_PER_SEGMENT)
 
-    order = np.random.default_rng(SEED).permutation(len(strings))
+    order = np.random.default_rng(SEED).permutation(n_all)
     batches = [order[i : i + MULTIGET_IDS].tolist()
-               for i in range(0, len(order), MULTIGET_IDS)]
+               for i in range(0, n_all, MULTIGET_IDS)]
     lat, answers = [], []
     t0 = time.perf_counter()
     for ids in batches:
@@ -196,30 +259,21 @@ def main() -> int:
     multiget_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     for ids, got in zip(batches, answers):  # checked outside the timed loop
-        for i, s in zip(ids, got):
-            if s != strings[i]:
-                raise AssertionError(f"multiget({i}) != source string")
+        check_strings("multiget", got, [strings[i] for i in ids])
     del answers
 
-    launches = {"decode_compact": onpair_decode.decode_compact.launches,
-                "encode_batch": onpair_encode.encode_batch.launches}
-    log("main", f"launches {launches}; plain versions called "
-        f"{ref.decode_batch_ref.calls + ref.encode_batch_ref.calls} times; "
-        "repro_kernel_decode_batches_total{path=cuda} +"
+    launches = counts.end("read", ["decode_compact", "encode_batch"])
+    log("read", "repro_kernel_decode_batches_total{path=cuda} +"
         f"{ops._DECODE_BATCHES['cuda'].value - cuda_batches_before}, "
         f"{{path=ref}} +{ops._DECODE_BATCHES['ref'].value - ref_batches_before}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if ref.decode_batch_ref.calls or ref.encode_batch_ref.calls:
-        raise AssertionError("the main path called a plain version on the card")
     if ops._DECODE_BATCHES["ref"].value != ref_batches_before:
         raise AssertionError("repro_kernel_decode_batches_total{path=ref} moved")
-    if store.stats.decoded_strings != len(strings):
+    if store.stats.decoded_strings != n_all:
         raise AssertionError("not every string was decoded exactly once")
     decoded_bytes = store.stats.decoded_bytes
 
     # launches per shape, recomputed from the inputs, must add up to the counts
-    enc_lens = np.fromiter((max(len(s), 1) for s in strings), np.int64, len(strings))
+    enc_lens = np.fromiter((max(len(s), 1) for s in strings), np.int64, n_all)
     caps_enc = sorted(set(ops._ENCODE_LEN_BUCKETS) | {
         store._device._encode_cap(int(enc_lens.max()))})
     enc_shapes = {}
@@ -228,11 +282,11 @@ def main() -> int:
         k = int(((enc_lens > lo) & (enc_lens <= cap)).sum())
         enc_shapes[cap] = math.ceil(k / store._device.encode_pad_batch)
         lo = cap
-    counts = corpus.token_counts()
+    tok_counts = corpus.token_counts()
     caps_dec = [int(c) for c in store.bucket_caps]
     dec_shapes = dict.fromkeys(caps_dec, 0)
     for ids in batches:
-        b = np.searchsorted(store.bucket_caps, counts[ids], side="left")
+        b = np.searchsorted(store.bucket_caps, tok_counts[ids], side="left")
         for j, cap in enumerate(caps_dec):
             dec_shapes[cap] += math.ceil(int((b == j).sum()) / store.batch_size)
     if sum(enc_shapes.values()) != launches["encode_batch"] or \
@@ -240,28 +294,132 @@ def main() -> int:
         raise AssertionError(f"launches per shape {enc_shapes} {dec_shapes} do "
                              f"not add up to {launches}")
 
-    # -------------------------------------- 5. device share of the main path
-    # a steady window of each path, driven as above but under torch.profiler
-    # (after the counts were read): kernel device time over the window's wall
+    # ---------------------------------------- 4.2 full decompression
+    counts.start()
+    decoder = Decoder(dictionary, device=dev)
+    joined = b"".join(strings)
+    decode_all_s = []
+    for _ in range(4):  # the first call is the path's; three more for spread
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = decoder.decode_all(corpus)
+        decode_all_s.append(time.perf_counter() - t0)
+        if whole != joined:
+            raise AssertionError("decode_all != the concatenated source strings")
+    del whole
+    stream_full_launches = counts.end("decode_all", ["decode_tokens"])["decode_tokens"]
+
+    # -------------------------------------------------------------- 4.3 scan
+    counts.start()
+    n_seg = store.segments.n_segments
+    t0 = time.perf_counter()
+    scanned = []
+    for lo in range(0, n_all, STRINGS_PER_SEGMENT):
+        scanned.extend(store.scan(lo, min(lo + STRINGS_PER_SEGMENT, n_all)))
+    scan_seg_s = time.perf_counter() - t0
+    check_strings("scan, segment-sized ranges", scanned, strings)
+    t0 = time.perf_counter()
+    scanned = store.scan(0, n_all)
+    scan_all_s = time.perf_counter() - t0
+    check_strings("scan(0, n)", scanned, strings)
+    del scanned
+    scan_launches = counts.end("scan", ["decode_tokens"])["decode_tokens"]
+    if scan_launches != 2 * n_seg:
+        raise AssertionError(f"scan: {scan_launches} launches for 2 x {n_seg} segments")
+
+    # ---------------------------------------------------- 4.4 writable store
+    counts.start()
+    half = n_all // 2
+    cut = int(corpus.offsets[half])
+    first = CompressedCorpus(payload=corpus.payload[:cut],
+                             offsets=corpus.offsets[: half + 1].copy(),
+                             raw_bytes=sum(map(len, strings[:half])),
+                             meta=dict(corpus.meta))
+    wstore = MutableStringStore(dictionary, first, device=dev, config=config,
+                                strings_per_segment=STRINGS_PER_SEGMENT,
+                                cache_bytes=0)
+    t0 = time.perf_counter()
+    for lo in range(half, n_all, EXTEND_BATCH):
+        ids = wstore.extend(strings[lo : lo + EXTEND_BATCH])
+        if ids[0] != lo or len(ids) != min(EXTEND_BATCH, n_all - lo):
+            raise AssertionError(f"extend at {lo} returned ids from {ids[0]}")
+    extend_s = time.perf_counter() - t0
+    extend_raw = raw_bytes - first.raw_bytes
+    wstore.seal_barrier()
+    snap = wstore.snapshot_corpus()
+    if not (np.array_equal(snap.payload, corpus.payload)
+            and np.array_equal(snap.offsets, corpus.offsets)):
+        raise AssertionError("writable store: snapshot_corpus() != the one-shot encode")
+    sealed, tail = wstore.n_sealed, wstore.n_strings - wstore.n_sealed
+    log("write", f"after extend + seal_barrier: {sealed} sealed strings in "
+        f"{wstore.segments.n_segments} segments, {tail} in the tail; snapshot "
+        "payload and offsets == the one-shot encode")
+    if not (0 < tail < STRINGS_PER_SEGMENT):
+        raise AssertionError("the writable store has no sealed/tail boundary")
+    rng = np.random.default_rng(SEED + 1)
+    around = [i for i in range(sealed - 5, sealed + 5) if 0 <= i < n_all]
+    for ids in (around, rng.integers(0, n_all, 4096).tolist() + around,
+                rng.integers(sealed, n_all, 512).tolist()):
+        check_strings("writable multiget", wstore.multiget(ids),
+                      [strings[i] for i in ids])
+    for lo, hi in ((sealed - 3000, n_all), (sealed - 1, sealed + 1),
+                   (sealed, n_all), (half - 10, half + 10)):
+        check_strings(f"writable scan({lo}, {hi})", wstore.scan(lo, hi),
+                      strings[lo:hi])
+    report = wstore.compact()
+    log("write", f"compact: {report}")
+    check_strings("scan after compact", wstore.scan(0, n_all), strings)
+    ids = rng.integers(0, n_all, 4096).tolist()
+    check_strings("multiget after compact", wstore.multiget(ids),
+                  [strings[i] for i in ids])
+    snap = wstore.snapshot_corpus()
+    same_payload = (np.array_equal(snap.payload, corpus.payload)
+                    and np.array_equal(snap.offsets, corpus.offsets))
+    log("write", "after compact (the same strings and training config as "
+        f"the first dictionary): payload == the one-shot encode: {same_payload}")
+    counts.end("write", ["encode_batch", "decode_compact", "decode_tokens"])
+    del snap
+
+    # ------------------------------------------- 5. device share of each path
+    # a window of each path, driven as above but under torch.profiler (after
+    # the counts were read): kernel device time over the window's wall
     encoder = Encoder(dictionary, device=dev)
-    windows = {"encode": device_window(lambda: encoder.encode(strings[:ENCODE_WINDOW])),
-               "multiget": device_window(
-                   lambda: [store.multiget(ids) for ids in batches[:MULTIGET_WINDOW]])}
-    path_ms = {}
+    wwin = MutableStringStore(dictionary, corpus, device=dev, config=config,
+                              strings_per_segment=STRINGS_PER_SEGMENT,
+                              cache_bytes=0)
+
+    def extend_window():
+        for lo in range(0, ENCODE_WINDOW, EXTEND_BATCH):
+            wwin.extend(strings[lo : lo + EXTEND_BATCH])
+        wwin.seal_barrier()
+
+    windows = {
+        "encode": device_window(lambda: encoder.encode(strings[:ENCODE_WINDOW])),
+        "multiget": device_window(
+            lambda: [store.multiget(ids) for ids in batches[:MULTIGET_WINDOW]]),
+        "decode_all": device_window(lambda: decoder.decode_all(corpus)),
+        "scan": device_window(lambda: store.scan(0, n_all)),
+        "extend": device_window(extend_window),
+        "compact": device_window(wwin.compact),
+    }
+    path_ms: dict[str, dict[str, float]] = {}
     for path, (wall, acts) in windows.items():
         if not acts:
             log("device", f"[{card}] {path}: torch.profiler recorded no device "
                 "time; busy share not measured")
             continue
         busy = sum(sec for _, sec in acts.values())
+        kernels_s = sum(acts.get(k, (0, 0.0))[1] for k in KERNEL_SYMBOLS)
         log("device", f"[{card}] {path} window (torch.profiler, {wall:.3f} s wall): "
             + "; ".join(f"{k} {n} x, {sec:.4f} s" for k, (n, sec) in sorted(acts.items()))
             + f"; device busy {busy / wall:.2%}, kernels of the path "
-            f"{sum(acts.get(k, (0, 0.0))[1] for k in KERNEL_SYMBOLS) / wall:.2%}")
+            f"{kernels_s / wall:.2%}")
         for name in KERNEL_SYMBOLS:
-            if name in acts:
-                path_ms[name] = acts[name][1] / acts[name][0] * 1e3
-    log("device", f"mean device ms per launch over the windows' mix of shapes: {path_ms}")
+            if name in acts:  # mean device ms per wrapper call in the window
+                calls = acts[name][0] / PASSES[name]
+                path_ms.setdefault(name, {})[path] = acts[name][1] / calls * 1e3
+    log("device", f"mean device ms per wrapper call over each window: {path_ms}")
+    del wwin
 
     # ---------------------------------------------------- 6. kernel parity
     dd = store._device.dd
@@ -287,8 +445,8 @@ def main() -> int:
         return D, L
 
     def long_strings(n, lo, hi):
-        joined = (b" / ".join(strings[i : i + 8]) for i in range(0, 80 * n, 8))
-        return [s[:hi] for s in joined if len(s) > lo][:n]
+        joined_ = (b" / ".join(strings[i : i + 8]) for i in range(0, 80 * n, 8))
+        return [s[:hi] for s in joined_ if len(s) > lo][:n]
 
     encode_pair(EDGE, 512, 512, "edge strings")
     encode_pair(EDGE[:6] + strings[:64], 128, 5, "max_tokens=5 truncation")
@@ -319,14 +477,15 @@ def main() -> int:
         check_equal("decode_compact", f"{case} bytes", out[valid], rout[valid])
         return T, N
 
-    sixteen = np.flatnonzero(dictionary.lens == 16).astype(np.int32)[:8]
+    sixteen = np.flatnonzero(dictionary.lens == 16).astype(np.int32)
+    ones = np.flatnonzero(dictionary.lens == 1).astype(np.int32)
     decode_pair(np.zeros((0, 4), np.int32), np.zeros(0, np.int32), "B=0")
     decode_pair(np.zeros((1, 4), np.int32), np.zeros(1, np.int32), "n_tokens=0")
     decode_pair(np.array([[65], [66]], np.int32), np.array([1, 0], np.int32), "T=1")
-    decode_pair(np.tile(sixteen, (4, 1)), np.array([8, 7, 1, 0], np.int32),
+    decode_pair(np.tile(sixteen[:8], (4, 1)), np.array([8, 7, 1, 0], np.int32),
                 "16-byte rows")
     dec_inputs = {}
-    bucket_of = np.searchsorted(store.bucket_caps, counts, side="left")
+    bucket_of = np.searchsorted(store.bucket_caps, tok_counts, side="left")
     for j, cap in enumerate(caps_dec):
         members = np.flatnonzero(bucket_of == j)[:PARITY_STRINGS]
         for c0 in range(0, len(members), store.batch_size):
@@ -339,16 +498,79 @@ def main() -> int:
         f"rows, up to {PARITY_STRINGS} corpus strings per store bucket at "
         f"(256, cap) for caps {caps_dec}")
 
+    host_lens = dictionary.lens.astype(np.int64)
+
+    def stream_pair(tokens, n, max_out, case):
+        """The stream kernel == its plain version: every output byte (zeros
+        past out_len included) and out_len."""
+        T = torch.from_numpy(np.ascontiguousarray(tokens, np.int32)).to(dev)
+        before = onpair_decode.decode_tokens.launches
+        out, olen = onpair_decode.decode_tokens(T, n, dd.mat16, dd.lens, max_out)
+        rout, rlen = ref.decode_tokens_ref(T, n, dd.mat16, dd.lens, max_out)
+        check_equal("decode_tokens", f"{case} out_len", olen, rlen)
+        check_equal("decode_tokens", f"{case} bytes", out, rout)
+        launched = onpair_decode.decode_tokens.launches - before
+        if launched != (1 if min(n, T.numel()) > 0 else 0):
+            raise AssertionError(f"decode_tokens {case}: {launched} launches")
+        return T, min(max(n, 0), T.numel()), int(olen)
+
+    rng = np.random.default_rng(SEED + 2)
+    N = dictionary.num_entries
+    for T in (1, 1023, 1024, 1025):
+        t = rng.integers(0, N, T)
+        stream_pair(t, T, int(host_lens[t].sum()), f"T={T}")
+    t = rng.integers(0, N, 3000)
+    full = int(host_lens[t].sum())
+    stream_pair(t, 1700, int(host_lens[t[:1700]].sum()), "n_tokens < T")
+    stream_pair(t, 3000, full - 1000, "max_out < out_len")
+    stream_pair(t, 3000, full + 99, "max_out > out_len (zero filled)")
+    stream_pair(np.resize(sixteen, 5000), 5000, 16 * 5000, "all 16-byte tokens")
+    stream_pair(np.resize(ones, 5000), 5000, 5000, "all 1-byte tokens")
+    t = rng.integers(0, N, 1 << 20)
+    stream_pair(t, t.size, int(host_lens[t].sum()), "2^20 random ids")
+    stream_pair(np.zeros(0, np.int32), 0, 8, "T=0")
+    stream_pair(np.zeros(9, np.int32), 0, 8, "n_tokens=0")
+    all_tokens = corpus.payload.view("<u2").astype(np.int32)
+    seg0 = store.segments.segments[0]
+    seg_tokens = seg0.tokens().astype(np.int32)
+    stream_inputs = {
+        f"one segment ({seg0.n_strings} strings, T={seg_tokens.size})":
+            stream_pair(seg_tokens, seg_tokens.size,
+                        int(host_lens[seg_tokens].sum()), "one store segment"),
+        f"full stream (T={all_tokens.size})":
+            stream_pair(all_tokens, all_tokens.size, raw_bytes, "full-corpus stream"),
+    }
+    log("parity", "decode_tokens == plain, exact (all bytes and out_len): T=1, "
+        "1023, 1024, 1025, n_tokens < T, max_out < and > out_len, all 16-byte "
+        "and all 1-byte tokens, 2^20 random ids, one store segment, the "
+        "full-corpus stream; T=0 and n_tokens=0 return without a launch")
+
     # ------------------------------------------------------------ 7. numbers
     log("numbers", f"[{card}] encode {throughput_mib_s(raw_bytes, encode_s):.3f} "
         f"MiB/s ({raw_bytes} B in {encode_s:.3f} s, {launches['encode_batch']} "
         f"launches); ratio {corpus.ratio:.4f}")
     lat_ms = np.asarray(lat) * 1e3
-    log("numbers", f"[{card}] multiget {len(strings) / multiget_s:.1f} lookups/s, "
+    log("numbers", f"[{card}] multiget {n_all / multiget_s:.1f} lookups/s, "
         f"{throughput_mib_s(decoded_bytes, multiget_s):.3f} MiB/s ({len(batches)} "
         f"batches of {MULTIGET_IDS} ids in {multiget_s:.3f} s; p50 "
         f"{np.percentile(lat_ms, 50):.3f} ms, p99 {np.percentile(lat_ms, 99):.3f} "
         f"ms per batch)")
+    log("numbers", f"[{card}] decode_all {throughput_mib_s(raw_bytes, decode_all_s[0]):.1f} "
+        f"MiB/s ({raw_bytes} B, {all_tokens.size} tokens in one launch, "
+        f"{decode_all_s[0] * 1e3:.2f} ms; three more calls: "
+        + ", ".join(f"{throughput_mib_s(raw_bytes, s):.1f}" for s in decode_all_s[1:]) + " MiB/s)")
+    log("numbers", f"[{card}] scan in segment-sized ranges "
+        f"{throughput_mib_s(raw_bytes, scan_seg_s):.1f} MiB/s, {n_all / scan_seg_s:.0f} "
+        f"strings/s ({n_seg} ranges in {scan_seg_s:.3f} s); scan(0, n) "
+        f"{throughput_mib_s(raw_bytes, scan_all_s):.1f} MiB/s, {n_all / scan_all_s:.0f} "
+        f"strings/s ({scan_all_s:.3f} s)")
+    log("numbers", f"[{card}] extend {throughput_mib_s(extend_raw, extend_s):.3f} MiB/s, "
+        f"{(n_all - half) / extend_s:.0f} strings/s ({n_all - half} strings, "
+        f"{extend_raw} B in batches of {EXTEND_BATCH}, {extend_s:.3f} s, seals "
+        "off-thread)")
+    log("numbers", f"[{card}] compact train_s {report['train_s']}, total_s "
+        f"{report['total_s']}, ratio_before {report['ratio_before']}, "
+        f"ratio_after {report['ratio_after']} ({report['n_strings']} strings)")
 
     def rows_touched(tokens: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         valid = torch.arange(tokens.shape[1], device=dev) < n[:, None]
@@ -369,12 +591,12 @@ def main() -> int:
             "plain_ms": cuda_ms(plain_fn, plain_reps, warmup=1),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes})
 
-    for cap, (T, N) in dec_inputs.items():
-        out, olen = onpair_decode.decode_compact(T, N, dd.mat16, dd.lens)
+    for cap, (T, N_) in dec_inputs.items():
+        out, olen = onpair_decode.decode_compact(T, N_, dd.mat16, dd.lens)
         measure("decode_compact", f"(256, {cap})", dec_shapes[cap],
-                lambda: onpair_decode.decode_compact(T, N, dd.mat16, dd.lens),
-                lambda: ref.decode_batch_ref(T, N, dd.mat16, dd.lens), 5,
-                T.numel() * 4 + N.numel() * 4 + rows_touched(T, N).numel() * 20
+                lambda: onpair_decode.decode_compact(T, N_, dd.mat16, dd.lens),
+                lambda: ref.decode_batch_ref(T, N_, dd.mat16, dd.lens), 5,
+                T.numel() * 4 + N_.numel() * 4 + rows_touched(T, N_).numel() * 20
                 + int(olen.sum()) + olen.numel() * 4)
     long_tok = torch.from_numpy(dictionary.lens > 8).to(dev)
     for cap, (D, L) in enc_inputs.items():
@@ -389,27 +611,39 @@ def main() -> int:
                 lambda: ref.encode_batch_ref(D, L, dd, cap), 1,
                 D.numel() + L.numel() * 4 + toks.numel() * 4 + n.numel() * 4
                 + 16 * (used.numel() - n_long) + 40 * n_long)
+    stream_total = counts.total["decode_tokens"]
+    for (shape, (T, n, out_len)), n_launch in zip(
+            stream_inputs.items(),
+            (stream_total - stream_full_launches, stream_full_launches)):
+        # tokens read once, each distinct dictionary row (16 B) and length
+        # (4 B) once, the decoded bytes and out_len written once
+        measure("decode_tokens", shape, n_launch,
+                lambda: onpair_decode.decode_tokens(T, n, dd.mat16, dd.lens, out_len),
+                lambda: ref.decode_tokens_ref(T, n, dd.mat16, dd.lens, out_len), 3,
+                4 * n + 20 * torch.unique(T[:n]).numel() + out_len + 8)
     for r in per_shape:
         log("numbers", f"[{card}] {r['name']} {r['shape']}: {r['ms'] * 1e3:.2f} us "
-            f"device time per launch ({r['method']}), {r['call_ms'] * 1e3:.2f} us "
+            f"device time per call ({r['method']}), {r['call_ms'] * 1e3:.2f} us "
             f"per wrapper call (CUDA events over 200 calls), plain "
             f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.4f} us "
             f"({r['bytes']} B at 3.35 TB/s); {r['launches']} launches on the "
-            "main path (L2 warm)")
+            "paths (L2 warm)")
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
              "src/repro/kernels/onpair_decode.py:116"),
             ("encode_batch", "src/repro_torch/kernels/csrc/onpair_encode.cu",
-             "src/repro/kernels/onpair_encode.py:67")):
+             "src/repro/kernels/onpair_encode.py:67"),
+            ("decode_tokens", "src/repro_torch/kernels/csrc/onpair_decode_stream.cu",
+             "src/repro/kernels/onpair_decode.py:40")):
         rows = [r for r in per_shape if r["name"] == name]
         total = sum(r["launches"] for r in rows)  # > 0: every kernel launched
 
         def weighted(key, rows=rows, total=total):
-            # mean per launch over the main path's mix of shapes
+            # mean per launch over the paths' mix of shapes
             return sum(r["launches"] * r[key] for r in rows) / total
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counts.total[name],
                         # any difference from the plain version raised above
                         "max_abs_err": 0, "parity": "exact",
                         "ms": weighted("ms"), "plain_ms": weighted("plain_ms"),

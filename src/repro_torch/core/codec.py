@@ -3,6 +3,7 @@
     dictionary = PackedDictionary.build(train_dictionary(strings, cfg).entries)
     corpus = Encoder(dictionary).encode(strings)          # encode kernel
     Decoder(dictionary).multiget(corpus, [17, 3])         # decode kernel
+    Decoder(dictionary).decode_all(corpus)                # stream kernel
 
 ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the kernels' plain
 PyTorch versions. Both give byte-identical results.
@@ -50,6 +51,17 @@ class Decoder:
     def __init__(self, dictionary: PackedDictionary | DeviceDict,
                  device: str | torch.device = "cuda"):
         self._device = OnPairDevice(dictionary, device)
+
+    @property
+    def dictionary(self) -> PackedDictionary | None:
+        """The frozen host dictionary, or None when the decoder was built
+        over device tables alone."""
+        return self._device.dictionary
+
+    def decode_all(self, corpus: CompressedCorpus) -> bytes:
+        """Full decompression: every string of the corpus, concatenated, in
+        one call of the stream kernel."""
+        return self._device.decode_stream(corpus.payload.view("<u2"))
 
     def access(self, corpus: CompressedCorpus, i: int) -> bytes:
         """Random access: string ``i`` alone."""

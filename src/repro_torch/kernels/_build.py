@@ -29,12 +29,14 @@ LIB_NAME = "libonpair_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of each extern "C" launcher (pointers and the stream as
 #: c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
     # tokens, n_tokens, mat16, lens, out, out_len, B, T, W, stream
     "onpair_decode_compact": [_P] * 6 + [_I] * 3 + [_P],
+    # tokens, mat16, lens, out, out_len, tile_sums, T, n, max_out, stream
+    "onpair_decode_stream": [_P] * 6 + [_I, _I, _L, _P],
     # data, lens, s_lo, s_hi, s_len, s_tok, p_lo, p_hi, p_len, p_bucket,
     # bucket_start, bucket_size, suf_lo, suf_hi, suf_len, suf_tok, tokens,
     # n_tokens, B, Lp, max_tokens, s_size, p_size, s_probe_max, p_probe_max,

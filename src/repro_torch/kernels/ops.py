@@ -2,7 +2,8 @@
 
 Bridges host-side types (a frozen dictionary, ``list[bytes]``, ragged token
 arrays) to the padded device layouts the kernels take, and back. Used by the
-codec (:mod:`repro_torch.core.codec`) and the store's multiget path.
+codec (:mod:`repro_torch.core.codec`) and the store's multiget, scan and
+write paths.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.device import resolve_device
-from repro_torch.kernels import onpair_decode, onpair_encode
+from repro_torch.kernels import _build, onpair_decode, onpair_encode
 from repro_torch.kernels.ref import DeviceDict
 from repro_torch.obs import REGISTRY, TRACER, Counter
 
@@ -78,6 +79,8 @@ class OnPairDevice:
     def __init__(self, dictionary: PackedDictionary | DeviceDict,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        #: the host dictionary, where one was given (None for bare tables)
+        self.dictionary: PackedDictionary | None = None
         if isinstance(dictionary, DeviceDict):
             if dictionary.device.type != self.device.type:
                 raise ValueError(f"dictionary tables are on {dictionary.device}, "
@@ -87,7 +90,11 @@ class OnPairDevice:
             if not dictionary.variant16:
                 raise ValueError("the device kernels decode OnPair16 "
                                  "(entries of at most 16 bytes)")
+            self.dictionary = dictionary
             self.dd = DeviceDict.build(dictionary, self.device)
+        #: host copy of the token lengths: output sizes and string
+        #: boundaries of a decoded stream are computed on the host
+        self.lens = self.dd.lens.cpu().numpy().astype(np.int64)
         self._path = "cuda" if self.device.type == "cuda" else "ref"
         # every launch uses a (encode_pad_batch, cap + 16) shape drawn from
         # encode_len_caps, as in the reference's bucketed encode
@@ -139,6 +146,12 @@ class OnPairDevice:
                     out[i] = toks[j, : n[j]]
         return out
 
+    def warm_encode(self) -> None:
+        """Build or load the kernel library now (on CUDA), so the first
+        encode pays no ``nvcc``. The CPU has nothing to build."""
+        if self.device.type == "cuda":
+            _build.load()
+
     def encode_to_bytes(self, strings: list[bytes]) -> list[bytes]:
         return [t.astype("<u2").tobytes() for t in self.encode_bucketed(strings)]
 
@@ -158,6 +171,32 @@ class OnPairDevice:
                 self.dd.mat16, self.dd.lens)
             out, olen = out.cpu().numpy(), olen.cpu().numpy()
         return [out[i, : olen[i]].tobytes() for i in range(out.shape[0])]
+
+    def decode_stream(self, tokens: np.ndarray) -> bytes:
+        """Decode one token stream (any concatenation of compressed strings)
+        in one call of the stream kernel."""
+        return self.decode_run(tokens, [np.asarray(tokens).size])[0]
+
+    def decode_run(self, tokens: np.ndarray, counts) -> list[bytes]:
+        """Decode the token streams of consecutive strings, concatenated in
+        ``tokens`` (string k holds ``counts[k]`` tokens), in one call of the
+        stream kernel, and split the bytes per string. One host cumsum of
+        the token lengths gives both the exact output size and the string
+        boundaries."""
+        tokens = np.ascontiguousarray(tokens, dtype=np.int32)
+        if tokens.size and (tokens.min() < 0 or tokens.max() >= self.dd.num_entries):
+            raise ValueError(f"token ids must lie in [0, {self.dd.num_entries})")
+        byte_cum = np.zeros(tokens.size + 1, dtype=np.int64)
+        np.cumsum(self.lens[tokens], out=byte_cum[1:])
+        decoded = b""
+        if tokens.size:
+            out, _ = onpair_decode.decode_tokens(
+                torch.from_numpy(tokens).to(self.device), tokens.size,
+                self.dd.mat16, self.dd.lens, int(byte_cum[-1]))
+            decoded = out.cpu().numpy().tobytes()
+        bounds = byte_cum[np.concatenate(([0], np.cumsum(counts)))]
+        return [decoded[int(bounds[k]) : int(bounds[k + 1])]
+                for k in range(len(counts))]
 
     def multiget_decode(self, token_lists: list[np.ndarray],
                         pad_tokens: int | None = None,

@@ -188,6 +188,36 @@ def decode_batch_ref(tokens: torch.Tensor, n_tokens: torch.Tensor,
 decode_batch_ref.calls = 0
 
 
+def decode_tokens_ref(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
+                      lens: torch.Tensor, max_out: int):
+    """Plain version of ``decode_tokens``: one token stream -> (out
+    uint8[max_out], out_len int64 scalar tensor).
+
+    The first ``n_tokens`` (clamped to [0, T]) tokens of ``tokens`` int32[T]
+    decode to the first ``lens[tok]`` bytes of each one's ``mat16`` row,
+    concatenated; ``out_len`` is their total length and ``out`` holds the
+    bytes before ``max_out``, zero past ``out_len``. The counterpart of the
+    reference's ``decode_ref``: a gather of rows and lengths, an exclusive
+    prefix sum, and one masked scatter.
+    """
+    decode_tokens_ref.calls += 1
+    T = tokens.shape[0]
+    dev = tokens.device
+    n = min(max(int(n_tokens), 0), T)
+    tok = tokens[:n].to(torch.int64)
+    tl = lens.to(torch.int64)[tok]
+    starts = tl.cumsum(0) - tl
+    j = torch.arange(16, device=dev)
+    idx = starts[:, None] + j
+    mask = (j < tl[:, None]) & (idx < max_out)
+    out = torch.zeros(max_out, dtype=torch.uint8, device=dev)
+    out[idx[mask]] = mat16[tok][mask]
+    return out, tl.sum()
+
+
+decode_tokens_ref.calls = 0
+
+
 # ============================================================ encode
 def _byte_mask(nbytes: torch.Tensor) -> torch.Tensor:
     """u32 mask covering the low min(nbytes, 4) bytes (0 if nbytes <= 0)."""

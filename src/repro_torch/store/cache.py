@@ -56,6 +56,10 @@ class LRUCache:
             self.current_bytes -= len(self._data.pop(old_key))
             self.evictions += 1
 
+    def clear(self) -> None:
+        self._data.clear()
+        self.current_bytes = 0
+
     @property
     def hit_rate(self) -> float:
         total = self.hits + self.misses

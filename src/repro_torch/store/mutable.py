@@ -1,0 +1,392 @@
+"""MutableStringStore — the write path of the port's store.
+
+OnPair compresses every string on its own against a trained dictionary, so
+new strings can be parsed against a frozen dictionary without retraining.
+The writable store layers that lifecycle over
+:class:`~repro_torch.store.store.CompressedStringStore`:
+
+* ``append``/``extend`` parse incoming strings through the encode kernel
+  (the port's :class:`~repro_torch.core.codec.Encoder`, sharing the store's
+  device tables) into an open tail of per-string token-stream payloads;
+* once the tail reaches ``strings_per_segment`` strings it is sealed into a
+  new immutable segment, off-thread by default; ``multiget`` (the decode
+  kernel) and ``scan`` (the stream kernel) answer across sealed segments
+  and the tail the whole time;
+* a :class:`~repro_torch.store.drift.DriftMonitor` watches the achieved
+  ratio of appended data against the train-time ratio; ``compact()``
+  re-trains a dictionary on the live data (with the store's
+  :class:`~repro_torch.core.onpair.OnPairConfig`), re-encodes every string
+  through the encode kernel and swaps the store's state under its lock.
+
+The store lives in memory: saving and reopening it is not part of the port
+yet.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+
+from repro_torch.core.api import CompressedCorpus
+from repro_torch.core.codec import Encoder
+from repro_torch.core.onpair import OnPairConfig, train_dictionary
+from repro_torch.core.packed import PackedDictionary
+from repro_torch.kernels.ops import OnPairDevice
+from repro_torch.kernels.ref import DeviceDict
+from repro_torch.store.drift import DriftMonitor
+from repro_torch.store.segment import SegmentedCorpus
+from repro_torch.store.store import CompressedStringStore
+
+
+def _empty_corpus() -> CompressedCorpus:
+    return CompressedCorpus(payload=np.zeros(0, dtype=np.uint8),
+                            offsets=np.zeros(1, dtype=np.int64), raw_bytes=0,
+                            meta={"compressor": "onpair16"})
+
+
+def _corpus_payloads(corpus: CompressedCorpus) -> list[bytes]:
+    """Per-string payload bytes via one buffer copy and slicing."""
+    buf = corpus.payload.tobytes()
+    off = corpus.offsets
+    return [buf[off[i]:off[i + 1]] for i in range(corpus.n_strings)]
+
+
+class MutableStringStore(CompressedStringStore):
+    """Appendable store over a frozen dictionary, with drift-triggered
+    compaction.
+
+    ``corpus`` may be ``None`` to start an empty store that appends fill.
+    ``config`` is the OnPair16 training configuration ``compact()`` retrains
+    with (default ``OnPairConfig.onpair16()``); other keywords are the read
+    store's.
+    """
+
+    #: optimistic encode attempts before extend() takes the store lock for
+    #: the whole encode+ingest; bounds the compact-race retry (a compact()
+    #: swapping the dictionary between parse and ingest invalidates the batch)
+    _MAX_ENCODE_RETRIES = 3
+
+    def __init__(self, dictionary: PackedDictionary | DeviceDict,
+                 corpus: CompressedCorpus | None = None, *,
+                 config: OnPairConfig | None = None,
+                 drift_threshold: float = 0.2, auto_compact: bool = False,
+                 train_ratio: float | None = None, async_seal: bool = True,
+                 **store_kw):
+        config = config if config is not None else OnPairConfig.onpair16()
+        if config.max_entry_len is None or config.max_entry_len > 16:
+            raise ValueError("compact() retrains for the device kernels, which "
+                             "decode OnPair16: max_entry_len must be <= 16")
+        # tail state exists before the base constructor, which reads n_strings
+        self._tail: list[bytes] = []       # compressed payload per string
+        self._tail_raw: list[int] = []     # decoded byte length per string
+        self._tail_bytes = 0
+        self._n_total = 0
+        if corpus is None:
+            corpus = _empty_corpus()
+        super().__init__(dictionary, corpus, **store_kw)
+        self._n_total = self.segments.n_strings
+        self.config = config
+        self._encoder = self._make_encoder(self._device)
+        # serialises encoder use between extend() callers (the bucketed
+        # encode grows its shape list on demand)
+        self._encode_lock = threading.Lock()
+        base = train_ratio if train_ratio is not None else (
+            corpus.ratio if corpus.compressed_bytes else None)
+        self.drift = DriftMonitor(threshold=drift_threshold,
+                                  baseline_ratio=base)
+        self.auto_compact = auto_compact
+        self.version_id = 0          # bumped by every compact()
+        self.compactions = 0
+        # off-thread seals: a sealing extend() only requests a seal; a worker
+        # builds the segment and commits under the lock iff the tail it
+        # snapshotted is still current (the _tail_gen and version_id guards)
+        self.async_seal = bool(async_seal)
+        self._sealing = False
+        self._tail_gen = 0           # bumped when the tail's prefix changes
+        self._seal_done_cv = threading.Condition(self._lock)
+
+    @staticmethod
+    def _make_encoder(device: OnPairDevice) -> Encoder:
+        """The tail encoder for a dictionary generation: the encode kernel on
+        ``device``'s tables, with the kernel library built now so the first
+        extend() pays no ``nvcc``. compact() calls this outside the lock."""
+        device.warm_encode()
+        return Encoder(device.dd, device=device.device)
+
+    # -------------------------------------------------------------- tail hooks
+    def _tail_n(self) -> int:
+        return len(self._tail)
+
+    def _tail_payload_bytes(self) -> int:
+        return self._tail_bytes
+
+    def _tail_string_tokens(self, local: int) -> np.ndarray:
+        return np.frombuffer(self._tail[local], dtype="<u2")
+
+    def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
+        if lo >= hi:
+            return []
+        parts = self._tail[lo:hi]
+        counts = np.asarray([len(p) // 2 for p in parts], dtype=np.int64)
+        return self._device.decode_run(
+            np.frombuffer(b"".join(parts), dtype="<u2"), counts)
+
+    @property
+    def n_strings(self) -> int:
+        # a plain int read: monotonic for unlocked readers even while a seal
+        # moves strings from the tail into a new segment under the lock
+        return self._n_total
+
+    # ----------------------------------------------------------------- writes
+    def append(self, s: bytes) -> int:
+        """Parse one string against the frozen dictionary and append it.
+        Returns the new string's global id (ids are assigned contiguously)."""
+        return self.extend([s])[0]
+
+    def extend(self, strings: list[bytes]) -> list[int]:
+        """Batched append: one encode pass, then one locked tail update."""
+        strings = [bytes(s) for s in strings]
+        if not strings:
+            return []
+        raw_lens = [len(s) for s in strings]
+        ids = None
+        for _ in range(self._MAX_ENCODE_RETRIES):
+            with self._encode_lock:
+                version = self.version_id
+                corpus = self._encoder.encode(strings)
+            payloads = _corpus_payloads(corpus)
+            with self._lock:
+                if version == self.version_id:
+                    ids = self._ingest_locked(payloads, raw_lens)
+                    break
+            # a compact() swapped the dictionary while we were parsing: the
+            # payloads reference the old token table, so parse again
+        if ids is None:
+            # retries exhausted: encode under the store lock itself, where
+            # compact()'s swap cannot interleave
+            with self._lock:
+                corpus = self._encoder.encode(strings)
+                ids = self._ingest_locked(_corpus_payloads(corpus), raw_lens)
+        if self.auto_compact and self.drift.should_compact():
+            self.compact()
+        return ids
+
+    def seal(self) -> None:
+        """Seal the current tail into a (possibly short) segment. Waits for
+        any background seal first; on return the tail is empty."""
+        with self._seal_done_cv:
+            while self._sealing:
+                self._seal_done_cv.wait()
+            self._seal_tail_locked()
+
+    def seal_barrier(self) -> None:
+        """Block until no background seal is pending: afterwards the tail is
+        shorter than ``strings_per_segment`` (until the next sealing
+        extend). compact() calls this so its snapshot never races a
+        half-built segment."""
+        with self._seal_done_cv:
+            while self._sealing:
+                self._seal_done_cv.wait()
+
+    def _ingest_locked(self, payloads: list[bytes], raw_lens: list[int],
+                       assign_ids: bool = True) -> list[int]:
+        """Append a batch to the tail with one drift observation.
+        ``assign_ids=False`` re-files payloads whose ids are already
+        published (compact's delta) without moving ``_n_total``. Crossing a
+        seal boundary requests a background seal (or seals inline when
+        ``async_seal`` is off)."""
+        n = len(payloads)
+        ids = list(range(self._n_total, self._n_total + n)) if assign_ids else []
+        self._tail.extend(payloads)
+        self._tail_raw.extend(raw_lens)
+        comp = sum(map(len, payloads))
+        self._tail_bytes += comp
+        self.drift.observe(sum(raw_lens), comp)
+        if assign_ids:
+            self._n_total += n
+        spc = self.segments.strings_per_segment
+        if len(self._tail) >= spc:
+            if self.async_seal:
+                self._request_seal_locked()
+            else:
+                while len(self._tail) >= spc:
+                    self._seal_tail_locked(spc)
+        return ids
+
+    @staticmethod
+    def _build_segment(parts: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+        """(payload u8, local offsets i64) of a run of tail payloads."""
+        offsets = np.zeros(len(parts) + 1, dtype=np.int64)
+        np.cumsum([len(p) for p in parts], out=offsets[1:])
+        return np.frombuffer(b"".join(parts), dtype=np.uint8), offsets
+
+    def _seal_tail_locked(self, k: int | None = None) -> None:
+        """Seal the first ``k`` tail strings (all when None) inline."""
+        k = len(self._tail) if k is None else min(k, len(self._tail))
+        if k == 0:
+            return
+        payload, offsets = self._build_segment(self._tail[:k])
+        self._commit_seal_locked(k, payload, offsets, sum(self._tail_raw[:k]))
+
+    def _commit_seal_locked(self, k: int, payload: np.ndarray,
+                            offsets: np.ndarray, raw_bytes: int) -> None:
+        """Append the built segment and drop the first ``k`` tail strings.
+        Bumps ``_tail_gen``: any other in-flight snapshot of the old tail
+        prefix is now stale and must not commit."""
+        self.segments.append_segment(payload, offsets, raw_bytes=raw_bytes)
+        del self._tail[:k]
+        del self._tail_raw[:k]
+        self._tail_bytes -= int(offsets[-1])
+        self._tail_gen += 1
+
+    def _request_seal_locked(self) -> None:
+        if self._sealing:
+            return  # the worker is draining; it re-checks the boundary
+        self._sealing = True
+        threading.Thread(target=self._seal_worker, daemon=True,
+                         name="repro-torch-seal").start()
+
+    def _seal_worker(self) -> None:
+        """Drain the tail below the seal boundary, one segment a round. Each
+        round snapshots the first ``spc`` payloads under the lock, builds
+        the segment off the lock, and commits only if neither a compaction
+        (version_id) nor another seal (_tail_gen) changed the tail since."""
+        while True:
+            with self._lock:
+                spc = self.segments.strings_per_segment
+                if len(self._tail) < spc:
+                    self._sealing = False
+                    self._seal_done_cv.notify_all()
+                    return
+                version, gen = self.version_id, self._tail_gen
+                parts = self._tail[:spc]
+                raw_bytes = sum(self._tail_raw[:spc])
+            payload, offsets = self._build_segment(parts)
+            with self._lock:
+                if self.version_id != version or self._tail_gen != gen:
+                    continue  # the snapshot went stale: start the round again
+                self._commit_seal_locked(spc, payload, offsets, raw_bytes)
+
+    # ------------------------------------------------------------- compaction
+    def compact(self, *, sample_strings: int | None = None) -> dict:
+        """Re-train the dictionary on (a sample of) the live data, re-encode
+        every live string through the encode kernel, and swap the store's
+        state under its lock.
+
+        The live strings are read back through ``scan`` (the stream kernel)
+        in per-segment lock windows; training, the table upload and the bulk
+        re-encode run outside the lock, so reads and appends keep being
+        served from the old state. Strings appended meanwhile are re-parsed
+        against the new dictionary during the locked swap.
+        """
+        t0 = time.perf_counter()
+        self.seal_barrier()  # never snapshot a half-built background segment
+        n0 = self.n_strings
+        # ids < n0 are immutable, so chunked reads see the same bytes as one
+        # scan while reads and appends interleave between the chunks
+        live: list[bytes] = []
+        chunk = max(1, self.segments.strings_per_segment)
+        for lo in range(0, n0, chunk):
+            with self._lock:
+                live.extend(self._scan_locked(lo, min(lo + chunk, n0)))
+        if not live:
+            return {"n_strings": 0, "ratio_before": 0.0, "ratio_after": 0.0,
+                    "train_s": 0.0, "total_s": 0.0,
+                    "version": self._version_name()}
+        raw = sum(len(s) for s in live)
+        with self._lock:
+            compressed_before = self.segments.payload_bytes + self._tail_bytes
+        ratio_before = raw / max(1, compressed_before)
+
+        sample = live
+        if sample_strings is not None and sample_strings < len(live):
+            step = max(1, len(live) // sample_strings)
+            sample = live[::step][:sample_strings]
+        t_train0 = time.perf_counter()
+        trained = train_dictionary(sample, self.config)
+        train_s = time.perf_counter() - t_train0
+        dictionary = PackedDictionary.build(trained.entries)
+        new_device = OnPairDevice(dictionary, self._device.device)
+        new_encoder = self._make_encoder(new_device)
+        new_corpus = new_encoder.encode(live)
+
+        with self._lock:
+            # strings appended while we were retraining: decode them from the
+            # old state, then re-parse against the new dictionary; their ids
+            # are already published, so _n_total does not move
+            delta = self._scan_locked(n0, self._n_total)
+            self._swap_state_locked(dictionary, new_corpus, new_device,
+                                    new_encoder)
+            if delta:
+                d_corpus = new_encoder.encode(delta)
+                self._ingest_locked(_corpus_payloads(d_corpus),
+                                    [len(s) for s in delta], assign_ids=False)
+            compressed_after = self.segments.payload_bytes + self._tail_bytes
+        self.compactions += 1
+        raw_total = raw + sum(len(s) for s in delta)
+        return {"n_strings": self.n_strings,
+                "ratio_before": round(ratio_before, 4),
+                "ratio_after": round(raw_total / max(1, compressed_after), 4),
+                "train_s": round(train_s, 4),
+                "total_s": round(time.perf_counter() - t0, 4),
+                "version": self._version_name()}
+
+    def _swap_state_locked(self, dictionary: PackedDictionary | DeviceDict,
+                           corpus: CompressedCorpus,
+                           device: OnPairDevice | None = None,
+                           encoder: Encoder | None = None) -> None:
+        """Replace dictionary, corpus and segments in one locked step. The
+        decoded strings are unchanged, but cached entries belong to the old
+        generation's token streams, so the cache is dropped. Pass the
+        ``device`` and ``encoder`` built outside the lock so the swap only
+        assigns."""
+        self._device = (device if device is not None
+                        else OnPairDevice(dictionary, self._device.device))
+        self.corpus = corpus
+        self.segments = SegmentedCorpus.from_corpus(
+            corpus, self.segments.strings_per_segment)
+        self._set_bucket_caps(corpus.token_counts())
+        self._encoder = (encoder if encoder is not None
+                         else self._make_encoder(self._device))
+        self._tail = []
+        self._tail_raw = []
+        self._tail_bytes = 0
+        # _n_total is not reset: acknowledged ids never un-publish, and the
+        # caller re-files any delta beyond the corpus
+        self.cache.clear()
+        self.drift.reset(corpus.ratio if corpus.compressed_bytes else None)
+        self._tail_gen += 1   # in-flight seal snapshots are now stale
+        self.version_id += 1
+
+    # --------------------------------------------------------------- snapshot
+    def _version_name(self) -> str:
+        return f"v{self.version_id:04d}"
+
+    def snapshot_corpus(self) -> CompressedCorpus:
+        """One flat corpus over the sealed segments and the unsealed tail."""
+        with self._lock:
+            parts = [s.payload for s in self.segments.segments]
+            parts += [np.frombuffer(p, dtype=np.uint8) for p in self._tail]
+            payload = (np.concatenate(parts) if parts
+                       else np.zeros(0, dtype=np.uint8))
+            offs = [np.zeros(1, dtype=np.int64)]
+            base = 0
+            for seg in self.segments.segments:
+                if seg.n_strings:
+                    offs.append(seg.offsets[1:] + base)
+                base += seg.payload_bytes
+            for p in self._tail:
+                base += len(p)
+                offs.append(np.asarray([base], dtype=np.int64))
+            raw = self.segments.raw_bytes + sum(self._tail_raw)
+        return CompressedCorpus(payload=payload, offsets=np.concatenate(offs),
+                                raw_bytes=int(raw),
+                                meta={"compressor": "onpair16"})
+
+    def stats_snapshot(self) -> dict:
+        snap = super().stats_snapshot()
+        snap.update(drift=self.drift.snapshot(), compactions=self.compactions,
+                    version=self._version_name())
+        return snap

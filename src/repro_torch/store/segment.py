@@ -3,7 +3,9 @@
 A :class:`SegmentedCorpus` splits one :class:`~repro_torch.core.api.CompressedCorpus`
 into fixed-size segments of consecutive strings. Each segment carries a
 zero-copy payload view plus *segment-local* byte offsets, and global string
-ids route as ``gid -> (segment, local)`` by bisecting the segments' base ids.
+ids route as ``gid -> (segment, local)`` by bisecting the segments' base ids:
+the writable store seals appended tails into segments of their own, so
+segments may differ in size.
 """
 
 from __future__ import annotations
@@ -35,7 +37,13 @@ class Segment:
 
     def string_tokens(self, local: int) -> np.ndarray:
         """u16 token IDs of local string ``local`` (zero-copy view)."""
-        o0, o1 = int(self.offsets[local]), int(self.offsets[local + 1])
+        return self.tokens(local, local + 1)
+
+    def tokens(self, lo: int = 0, hi: int | None = None) -> np.ndarray:
+        """One u16 token stream covering local strings [lo, hi)."""
+        if hi is None:
+            hi = self.n_strings
+        o0, o1 = int(self.offsets[lo]), int(self.offsets[hi])
         return self.payload[o0:o1].view("<u2")
 
     def token_counts(self) -> np.ndarray:
@@ -72,6 +80,23 @@ class SegmentedCorpus:
         return cls(segments=segments, strings_per_segment=strings_per_segment,
                    n_strings=n, raw_bytes=corpus.raw_bytes)
 
+    def append_segment(self, payload: np.ndarray, offsets: np.ndarray,
+                       raw_bytes: int = 0) -> Segment:
+        """Seal a new segment of compressed strings behind the existing ones.
+
+        ``payload``/``offsets`` use the layout of :class:`Segment` (local byte
+        offsets into a u8 payload); its strings take the next global ids.
+        The caller synchronises (the writable store holds its lock).
+        """
+        seg = Segment(index=len(self.segments), base_id=self.n_strings,
+                      payload=np.asarray(payload, dtype=np.uint8),
+                      offsets=np.asarray(offsets, dtype=np.int64))
+        self.segments.append(seg)
+        self._base_ids.append(seg.base_id)
+        self.n_strings += seg.n_strings
+        self.raw_bytes += int(raw_bytes)
+        return seg
+
     def route(self, gid: int) -> tuple[Segment, int]:
         """Global string id -> (segment, local id). Raises IndexError when
         out of range (negative ids included — the store is an id-addressed
@@ -81,6 +106,17 @@ class SegmentedCorpus:
                 f"string id {gid} out of range [0, {self.n_strings})")
         seg = self.segments[bisect.bisect_right(self._base_ids, gid) - 1]
         return seg, gid - seg.base_id
+
+    def overlapping(self, lo: int, hi: int):
+        """Segments covering any id in [lo, hi), found by bisect: a narrow
+        scan touches only the segments it covers."""
+        if lo >= hi:
+            return
+        k = max(0, bisect.bisect_right(self._base_ids, lo) - 1)
+        for seg in self.segments[k:]:
+            if seg.base_id >= hi:
+                break
+            yield seg
 
     def string_tokens(self, gid: int) -> np.ndarray:
         seg, local = self.route(gid)
@@ -95,3 +131,7 @@ class SegmentedCorpus:
     @property
     def n_segments(self) -> int:
         return len(self.segments)
+
+    @property
+    def payload_bytes(self) -> int:
+        return sum(s.payload_bytes for s in self.segments)

@@ -19,6 +19,7 @@ class StoreStats:
         self.batches = 0            # decode kernel invocations
         self.padded_rows = 0        # batch rows incl. padding (waste metric)
         self.decode_seconds = 0.0
+        self.scan_strings = 0       # strings returned by scan()
         self.decode_shapes: set[tuple[int, int]] = set()  # (B, T) launched
         # per-store instruments registered into the process registry,
         # labelled by the store's device type
@@ -48,6 +49,7 @@ class StoreStats:
             "lookups": self.lookups,
             "decoded_strings": self.decoded_strings,
             "decoded_bytes": self.decoded_bytes,
+            "scan_strings": self.scan_strings,
             "batches": self.batches,
             "padded_rows": self.padded_rows,
             "pad_efficiency": round(

@@ -1,7 +1,7 @@
 """CompressedStringStore — batched random-access serving over an OnPair16 corpus.
 
 A frozen dictionary plus a :class:`~repro_torch.core.api.CompressedCorpus`
-become a store answering ``get(i)`` / ``multiget(ids)``.
+become a store answering ``get(i)`` / ``multiget(ids)`` / ``scan(lo, hi)``.
 
 Hot path (``multiget``): cache misses are routed through the segment layer
 to their token streams, *length-bucketed* into a small set of padded
@@ -10,6 +10,11 @@ to their token streams, *length-bucketed* into a small set of padded
 ``OnPairDevice.multiget_decode``). The bucket capacities come from quantiles
 of the corpus's token counts, as in the reference store, so a batch pads
 its rows to a nearby length rather than to the longest string.
+
+Range path (``scan``): each segment's covered slice is one token stream,
+decoded by the stream kernel
+(:func:`repro_torch.kernels.onpair_decode.decode_tokens` via
+``OnPairDevice.decode_run``) and split on per-string byte boundaries.
 """
 
 from __future__ import annotations
@@ -97,21 +102,54 @@ class CompressedStringStore:
         corpus = Encoder(dictionary, device=device).encode(strings)
         return cls(dictionary, corpus, device=device, **store_kw)
 
+    # -------------------------------------------------------------- tail hooks
+    # A store may hold strings beyond its sealed segments: the writable
+    # subclass (repro_torch.store.mutable) keeps an open tail of appended
+    # strings. The read path goes through these hooks so multiget, scan and
+    # stats answer across sealed and tail strings; this store has no tail.
+    def _tail_n(self) -> int:
+        return 0
+
+    def _tail_payload_bytes(self) -> int:
+        return 0
+
+    def _tail_string_tokens(self, local: int) -> np.ndarray:
+        raise IndexError(f"tail string {local} does not exist "
+                         "(a read-only store has no tail)")
+
+    def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
+        return []
+
+    def _string_tokens(self, gid: int) -> np.ndarray:
+        """u16 token ids of global string ``gid`` (sealed or tail). Call
+        under ``self._lock``."""
+        sealed = self.segments.n_strings
+        if gid < sealed:
+            return self.segments.string_tokens(gid)
+        return self._tail_string_tokens(gid - sealed)
+
     # ---------------------------------------------------------------- queries
     @property
-    def n_strings(self) -> int:
+    def n_sealed(self) -> int:
+        """Strings living in sealed (immutable) segments."""
         return self.segments.n_strings
+
+    @property
+    def n_strings(self) -> int:
+        return self.segments.n_strings + self._tail_n()
 
     def __len__(self) -> int:
         return self.n_strings
 
     @property
     def memory_bytes(self) -> int:
-        """Resident footprint: compressed payload + offsets on the host, the
-        dictionary tables on the device, and the decoded-string cache."""
+        """Resident footprint: compressed payload + offsets of every sealed
+        segment on the host, the dictionary tables on the device, the
+        decoded-string cache, and any unsealed tail payload."""
         seg_bytes = sum(s.payload_bytes + s.offsets.nbytes
                         for s in self.segments.segments)
-        return seg_bytes + self._device.dd.nbytes + self.cache.current_bytes
+        return (seg_bytes + self._device.dd.nbytes + self.cache.current_bytes
+                + self._tail_payload_bytes())
 
     def get(self, i: int) -> bytes:
         """Point lookup of string ``i``."""
@@ -149,9 +187,39 @@ class CompressedStringStore:
         self.stats.record_multiget(len(ids), time.perf_counter() - t0)
         return out
 
+    def scan(self, lo: int, hi: int) -> list[bytes]:
+        """Decode the contiguous id range [lo, hi): each segment's covered
+        slice is one token stream, decoded by one call of the stream kernel
+        and split on per-string byte boundaries. Ranges may extend past the
+        sealed segments into an unsealed tail."""
+        n = self.n_strings
+        if not (0 <= lo <= hi <= n):
+            raise IndexError(f"scan range [{lo}, {hi}) not within [0, {n}]")
+        with self._lock:
+            out = self._scan_locked(lo, hi)
+            self.stats.scan_strings += hi - lo
+        return out
+
+    def _scan_locked(self, lo: int, hi: int) -> list[bytes]:
+        out: list[bytes] = []
+        for seg in self.segments.overlapping(lo, hi):
+            s_lo = max(lo, seg.base_id)
+            s_hi = min(hi, seg.base_id + seg.n_strings)
+            if s_lo >= s_hi:
+                continue
+            l0, l1 = s_lo - seg.base_id, s_hi - seg.base_id
+            out.extend(self._device.decode_run(seg.tokens(l0, l1),
+                                               seg.token_counts()[l0:l1]))
+        sealed = self.segments.n_strings
+        if hi > sealed:
+            out.extend(self._tail_scan(max(lo, sealed) - sealed, hi - sealed))
+        return out
+
     def stats_snapshot(self) -> dict:
         snap = self.stats.snapshot(self.cache.stats())
         snap.update(backend=self.backend, n_strings=self.n_strings,
+                    n_sealed_strings=self.n_sealed,
+                    n_tail_strings=self._tail_n(),
                     n_segments=self.segments.n_segments,
                     bucket_caps=[int(c) for c in self.bucket_caps],
                     memory_bytes=self.memory_bytes)
@@ -159,7 +227,7 @@ class CompressedStringStore:
 
     # --------------------------------------------------------------- internals
     def _decode_misses(self, misses: list[int], results: dict[int, bytes]) -> None:
-        token_lists = [np.asarray(self.segments.string_tokens(i), dtype=np.int32)
+        token_lists = [np.asarray(self._string_tokens(i), dtype=np.int32)
                        for i in misses]
         counts = np.asarray([t.size for t in token_lists], dtype=np.int64)
         if int(counts.max()) > int(self.bucket_caps[-1]):
