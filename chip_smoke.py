@@ -22,11 +22,19 @@ after:
    sealed/tail boundary (the decode and stream kernels), and one
    ``compact()`` (all three).
 
-Every string each path returns is checked against its source. Afterwards it
-profiles a window of each path (device busy share), holds each kernel
-against its plain PyTorch version on the card, exactly, at the paths' shapes
-and at edge cases, times both with CUDA events and torch.profiler, and
-prints the numbers beside the card's name and power limit. Every failure
+Every string each path returns is checked against its source, and each
+path's encode launches are recomputed from the bucketed encode's chunking
+(per length cap, chunks of up to ``encode_pad_batch`` strings and
+``ops._ENCODE_CHUNK_BYTES`` padded bytes). Afterwards
+it profiles a window of each path (device busy share), holds each kernel
+against its plain PyTorch version on the card, exactly, at the paths'
+shapes (for the encode kernel: every launch of the whole-corpus encode, and
+the corpus payload equals the plain version's tokens), at edge cases and,
+for the encode kernel, on the crafted tables of
+``repro_torch.kernels.crafted`` (buckets of more than 32 suffixes, probe
+chains past a warp, 8 or 9 bytes left, truncation, batches of 1, 13 and 0
+strings), times both with CUDA events and torch.profiler, and prints the
+numbers beside the card's name and power limit. Every failure
 raises; the last line is the result the caller reads. Without a card it
 exits non-zero and prints no result. Imports nothing of JAX and nothing of
 ``repro``.
@@ -34,9 +42,12 @@ exits non-zero and prints no result. Imports nothing of JAX and nothing of
 
 from __future__ import annotations
 
+import cProfile
+import hashlib
 import json
 import math
 import os
+import pstats
 import subprocess
 import sys
 import time
@@ -52,7 +63,7 @@ MULTIGET_IDS = 1024
 EXTEND_BATCH = 1024
 STRINGS_PER_SEGMENT = 4096
 PARITY_STRINGS = 4096
-ENCODE_WINDOW = 1 << 16  # strings encoded (and appended) under the profiler
+ENCODE_WINDOW = 1 << 16  # strings appended under the profiler
 MULTIGET_WINDOW = 200  # 1024-id batches read under the profiler
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
@@ -130,6 +141,33 @@ def device_window(fn) -> tuple[float, dict[str, list]]:
     return wall, acts
 
 
+def encode_launch_shapes(strings: list[bytes], caps0, pad_batch: int,
+                         chunk_bytes: int) -> list:
+    """The (strings, cap) of each launch the bucketed encode makes for
+    ``strings``, in order: per length cap (caps0 grown by doubling to the
+    longest string), chunks of ``pad_batch`` strings and at most
+    ``chunk_bytes`` padded bytes, the last one smaller. Each entry is (cap,
+    indices of the chunk's strings)."""
+    lens = np.fromiter((max(len(s), 1) for s in strings), np.int64, len(strings))
+    caps = list(caps0)
+    while lens.size and caps[-1] < lens.max():
+        caps.append(2 * caps[-1])
+    cap_of = np.asarray(caps)[np.searchsorted(caps, lens, side="left")]
+    return [(int(cap), members[c0 : c0 + chunk])
+            for cap in np.unique(cap_of)
+            for members in (np.flatnonzero(cap_of == cap),)
+            for chunk in (max(1, min(pad_batch, chunk_bytes // (int(cap) + 16))),)
+            for c0 in range(0, members.size, chunk)]
+
+
+def shape_counts(launches: list) -> dict[tuple[int, int], int]:
+    """Launches per (B, cap) shape."""
+    out: dict[tuple[int, int], int] = {}
+    for cap, sel in launches:
+        out[(sel.size, cap)] = out.get((sel.size, cap), 0) + 1
+    return out
+
+
 def check_equal(name: str, case: str, got: torch.Tensor, want: torch.Tensor) -> None:
     """Raise unless a kernel's output equals its plain version's exactly."""
     if got.shape != want.shape or not torch.equal(got, want):
@@ -190,7 +228,8 @@ def main() -> int:
     from repro_torch.core.onpair import OnPairConfig, train_dictionary
     from repro_torch.core.packed import PackedDictionary
     from repro_torch.data.synth import load_dataset
-    from repro_torch.kernels import _build, onpair_decode, onpair_encode, ops, ref
+    from repro_torch.kernels import (_build, crafted, onpair_decode, onpair_encode,
+                                     ops, ref)
     from repro_torch.store import CompressedStringStore, MutableStringStore
 
     dev = torch.device("cuda")
@@ -273,15 +312,14 @@ def main() -> int:
     decoded_bytes = store.stats.decoded_bytes
 
     # launches per shape, recomputed from the inputs, must add up to the counts
-    enc_lens = np.fromiter((max(len(s), 1) for s in strings), np.int64, n_all)
-    caps_enc = sorted(set(ops._ENCODE_LEN_BUCKETS) | {
-        store._device._encode_cap(int(enc_lens.max()))})
-    enc_shapes = {}
-    lo = 0
-    for cap in caps_enc:
-        k = int(((enc_lens > lo) & (enc_lens <= cap)).sum())
-        enc_shapes[cap] = math.ceil(k / store._device.encode_pad_batch)
-        lo = cap
+    pad_batch = store._device.encode_pad_batch
+    chunk_bytes = ops._ENCODE_CHUNK_BYTES
+    read_launches = encode_launch_shapes(strings, ops._ENCODE_LEN_BUCKETS, pad_batch,
+                                         chunk_bytes)
+    enc_shapes = shape_counts(read_launches)
+    caps_enc = sorted(set(ops._ENCODE_LEN_BUCKETS) | {cap for cap, _ in read_launches})
+    log("read", f"encode launches per (B, cap): {enc_shapes} (chunks of up to "
+        f"{pad_batch} strings)")
     tok_counts = corpus.token_counts()
     caps_dec = [int(c) for c in store.bucket_caps]
     dec_shapes = dict.fromkeys(caps_dec, 0)
@@ -289,7 +327,7 @@ def main() -> int:
         b = np.searchsorted(store.bucket_caps, tok_counts[ids], side="left")
         for j, cap in enumerate(caps_dec):
             dec_shapes[cap] += math.ceil(int((b == j).sum()) / store.batch_size)
-    if sum(enc_shapes.values()) != launches["encode_batch"] or \
+    if len(read_launches) != launches["encode_batch"] or \
             sum(dec_shapes.values()) != launches["decode_compact"]:
         raise AssertionError(f"launches per shape {enc_shapes} {dec_shapes} do "
                              f"not add up to {launches}")
@@ -308,6 +346,25 @@ def main() -> int:
             raise AssertionError("decode_all != the concatenated source strings")
     del whole
     stream_full_launches = counts.end("decode_all", ["decode_tokens"])["decode_tokens"]
+
+    # the same calls in a process that has run nothing else: decode_all's
+    # host steps depend on what the process allocated before them
+    probe_file = os.path.join(ROOT, "build", "decode_all_probe.npz")
+    os.makedirs(os.path.dirname(probe_file), exist_ok=True)
+    np.savez(probe_file, entries=np.frombuffer(b"".join(dictionary.entries), np.uint8),
+             entry_lens=dictionary.lens, payload=corpus.payload,
+             offsets=corpus.offsets, raw_bytes=raw_bytes)
+    try:
+        probe = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--decode-all-probe", probe_file],
+                               capture_output=True, text=True, timeout=600)
+    finally:
+        os.remove(probe_file)
+    if probe.returncode != 0:
+        raise RuntimeError(f"decode_all in a fresh process failed:\n{probe.stderr[-4000:]}")
+    fresh = json.loads(probe.stdout.strip().splitlines()[-1])
+    if fresh["sha256"] != hashlib.sha256(joined).hexdigest():
+        raise AssertionError("decode_all in a fresh process != the source strings")
 
     # -------------------------------------------------------------- 4.3 scan
     counts.start()
@@ -338,6 +395,10 @@ def main() -> int:
     wstore = MutableStringStore(dictionary, first, device=dev, config=config,
                                 strings_per_segment=STRINGS_PER_SEGMENT,
                                 cache_bytes=0)
+    extend_launches = [encode_launch_shapes(strings[lo : lo + EXTEND_BATCH],
+                                            ops._ENCODE_LEN_BUCKETS, pad_batch,
+                                            chunk_bytes)
+                       for lo in range(half, n_all, EXTEND_BATCH)]
     t0 = time.perf_counter()
     for lo in range(half, n_all, EXTEND_BATCH):
         ids = wstore.extend(strings[lo : lo + EXTEND_BATCH])
@@ -377,7 +438,13 @@ def main() -> int:
                     and np.array_equal(snap.offsets, corpus.offsets))
     log("write", "after compact (the same strings and training config as "
         f"the first dictionary): payload == the one-shot encode: {same_payload}")
-    counts.end("write", ["encode_batch", "decode_compact", "decode_tokens"])
+    write = counts.end("write", ["encode_batch", "decode_compact", "decode_tokens"])
+    n_extend = sum(map(len, extend_launches))
+    # extend: one launch per length cap present in a batch; compact re-encodes
+    # every string as the read path's encode did
+    if write["encode_batch"] != n_extend + len(read_launches):
+        raise AssertionError(f"write: {write['encode_batch']} encode launches, "
+                             f"expected {n_extend} (extend) + {len(read_launches)} (compact)")
     del snap
 
     # ------------------------------------------- 5. device share of each path
@@ -394,7 +461,7 @@ def main() -> int:
         wwin.seal_barrier()
 
     windows = {
-        "encode": device_window(lambda: encoder.encode(strings[:ENCODE_WINDOW])),
+        "encode": device_window(lambda: encoder.encode(strings)),
         "multiget": device_window(
             lambda: [store.multiget(ids) for ids in batches[:MULTIGET_WINDOW]]),
         "decode_all": device_window(lambda: decoder.decode_all(corpus)),
@@ -419,30 +486,72 @@ def main() -> int:
                 calls = acts[name][0] / PASSES[name]
                 path_ms.setdefault(name, {})[path] = acts[name][1] / calls * 1e3
     log("device", f"mean device ms per wrapper call over each window: {path_ms}")
+
+    def host_profile(fn, top: int = 8) -> str:
+        """Wall of ``fn`` under cProfile and the functions with the most
+        time of their own (the main thread's host work; a wait for the card
+        shows in the call that synchronises)."""
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        fn()
+        torch.cuda.synchronize()
+        prof.disable()
+        wall = time.perf_counter() - t0
+        rows = sorted(((tt, f"{os.path.basename(f)}:{line}({name})")
+                       for (f, line, name), (_, _, tt, _, _) in
+                       pstats.Stats(prof).stats.items()), reverse=True)[:top]
+        return f"{wall:.3f} s wall; " + "; ".join(f"{n} {tt:.3f} s" for tt, n in rows)
+
+    log("host", f"[{card}] encode of the whole corpus under cProfile: "
+        f"{host_profile(lambda: encoder.encode(strings))}")
+    log("host", f"[{card}] 64 extend batches of 1,024 under cProfile: "
+        f"{host_profile(extend_window)}")
+    log("host", f"[{card}] decode_all under cProfile: "
+        f"{host_profile(lambda: decoder.decode_all(corpus))}")
     del wwin
 
     # ---------------------------------------------------- 6. kernel parity
     dd = store._device.dd
     lpm = lpm_from_entries(dictionary.entries)
 
-    def encode_pair(batch, cap, max_tokens, case):
-        """Kernel == plain version (whole outputs) == the host LPM parse."""
+    long_tok = torch.from_numpy(dictionary.lens > 8).to(dev)
+
+    def encode_bytes(D, L, toks, n) -> int:
+        """Bytes an encode launch must move: inputs read once, outputs written
+        once, and one table record per distinct token emitted (a 16-byte
+        short-table slot, or a prefix slot + bucket bounds + a suffix record,
+        40 B, for a token longer than 8 B)."""
+        valid = torch.arange(toks.shape[1], device=dev) < n[:, None]
+        used = torch.unique(toks[valid].to(torch.int64))
+        n_long = int(long_tok[used].sum())
+        return (D.numel() + L.numel() * 4 + toks.numel() * 4 + n.numel() * 4
+                + 16 * (used.numel() - n_long) + 40 * n_long)
+
+    def encode_pair(batch, cap, max_tokens, case, tables=dd, host=True):
+        """Kernel == plain version (whole outputs), one launch (none for an
+        empty batch), and == the host LPM parse of the trained dictionary
+        when ``host``."""
         data, lens = ops.pack_strings(batch, pad_len=cap)
         D, L = torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
-        got = onpair_encode.encode_batch(D, L, dd, max_tokens)
-        want = ref.encode_batch_ref(D, L, dd, max_tokens)
-        toks, n = got[0].cpu().numpy(), got[1].cpu().numpy()
-        ptoks, pn = want[0].cpu().numpy(), want[1].cpu().numpy()
-        for i, s in enumerate(batch):
-            host = lpm.parse(s)[:max_tokens]
-            if toks[i, : n[i]].tolist() != host or ptoks[i, : pn[i]].tolist() != host:
-                raise AssertionError(
-                    f"encode_batch {case}, row {i} {s!r}: host parse {host}, "
-                    f"kernel {toks[i, : n[i]].tolist()}, plain "
-                    f"{ptoks[i, : pn[i]].tolist()}")
+        before = onpair_encode.encode_batch.launches
+        got = onpair_encode.encode_batch(D, L, tables, max_tokens)
+        if onpair_encode.encode_batch.launches - before != (1 if batch else 0):
+            raise AssertionError(f"encode_batch {case}: wrong number of launches")
+        want = ref.encode_batch_ref(D, L, tables, max_tokens)
+        if host:
+            toks, n = got[0].cpu().numpy(), got[1].cpu().numpy()
+            ptoks, pn = want[0].cpu().numpy(), want[1].cpu().numpy()
+            for i, s in enumerate(batch):
+                parsed = lpm.parse(s)[:max_tokens]
+                if toks[i, : n[i]].tolist() != parsed or ptoks[i, : pn[i]].tolist() != parsed:
+                    raise AssertionError(
+                        f"encode_batch {case}, row {i} {s!r}: host parse {parsed}, "
+                        f"kernel {toks[i, : n[i]].tolist()}, plain "
+                        f"{ptoks[i, : pn[i]].tolist()}")
         check_equal("encode_batch", f"{case} tokens", got[0], want[0])
         check_equal("encode_batch", f"{case} n_tokens", got[1], want[1])
-        return D, L
+        return D, L, got
 
     def long_strings(n, lo, hi):
         joined_ = (b" / ".join(strings[i : i + 8]) for i in range(0, 80 * n, 8))
@@ -451,7 +560,6 @@ def main() -> int:
     encode_pair(EDGE, 512, 512, "edge strings")
     encode_pair(EDGE[:6] + strings[:64], 128, 5, "max_tokens=5 truncation")
     encode_pair([], 32, 32, "B=0")
-    enc_inputs = {}
     lo = 0
     for cap in caps_enc:
         batch = [s for s in strings if lo < max(len(s), 1) <= cap][:PARITY_STRINGS]
@@ -460,11 +568,68 @@ def main() -> int:
         if len(batch) < 64:
             raise AssertionError(f"no parity strings for encode cap {cap}")
         encode_pair(batch, cap, cap, f"{len(batch)} corpus strings, cap {cap}")
-        enc_inputs[cap] = encode_pair(batch[:64], cap, cap, f"(64, {cap}+16)")
         lo = cap
+    # every launch of the read path's whole-corpus encode, again: kernel ==
+    # plain, and the corpus holds exactly the plain version's tokens
+    pay_tokens = corpus.payload.view("<u2")
+    tok_off = corpus.offsets // 2
+    enc_inputs: dict[str, tuple] = {}   # shape label -> (D, L, launches)
+    corpus_bound_bytes = 0
+    for cap, sel in read_launches:
+        D, L, (toks, n) = encode_pair([strings[i] for i in sel], cap, cap,
+                                      f"read-path launch ({sel.size}, {cap}+16)",
+                                      host=False)
+        corpus_bound_bytes += encode_bytes(D, L, toks, n)
+        n_ = n.cpu().numpy().astype(np.int64)
+        flat = toks[torch.arange(cap, device=dev) < n[:, None]].cpu().numpy()
+        idx = np.arange(flat.size) + np.repeat(tok_off[sel] - (np.cumsum(n_) - n_), n_)
+        if not (np.array_equal(n_, np.diff(tok_off)[sel])
+                and np.array_equal(pay_tokens[idx], flat.astype(np.uint16))):
+            raise AssertionError(f"encode: the corpus payload of launch ({sel.size}, "
+                                 f"{cap}) differs from the plain version's tokens")
+        # the read path's shapes recur in compact's re-encode of every string
+        enc_inputs.setdefault(f"({sel.size}, {cap}+16)",
+                              (D, L, 2 * enc_shapes[(sel.size, cap)]))
+    ext = strings[half : half + EXTEND_BATCH]
+    for cap, sel in encode_launch_shapes(ext, ops._ENCODE_LEN_BUCKETS, pad_batch,
+                                         chunk_bytes):
+        D, L, _ = encode_pair([ext[i] for i in sel], cap, cap,
+                              f"extend launch ({sel.size}, {cap}+16)", host=False)
+        n_launch = sum(c == cap for batch in extend_launches for c, _ in batch)
+        enc_inputs[f"extend batches at cap {cap}, first ({sel.size}, {cap}+16)"] = (
+            D, L, n_launch)
     log("parity", f"encode_batch == plain == host LPM parse, exact: edge strings, max_tokens "
-        f"truncation, B=0, up to {PARITY_STRINGS} corpus strings in each cap "
-        f"{caps_enc} and the main path's (64, cap+16) shapes")
+        f"truncation, B=0 (no launch), up to {PARITY_STRINGS} corpus strings in each cap "
+        f"{caps_enc}; == plain on all {len(read_launches)} launches of the whole-corpus "
+        f"encode (the payload, sha256 {hashlib.sha256(corpus.payload).hexdigest()[:16]}, "
+        "is the plain version's tokens) and on the first extend batch's launches")
+
+    case = crafted.encode_case(seed=SEED)
+    cdd = ref.DeviceDict.from_arrays(case.arrays, s_probe_max=case.s_probe_max,
+                                     p_probe_max=case.p_probe_max,
+                                     max_bucket=case.max_bucket, device=dev)
+    named = [c for c in case.cases if c[0] != "mixed"]
+    _, _, (toks, n) = encode_pair([s for _, s, _ in named], 64, 64,
+                                  "crafted named cases", cdd, host=False)
+    for i, (name, _, first) in enumerate(named):
+        if (int(toks[i, 0]) if int(n[i]) else -1) != first:
+            raise AssertionError(f"encode_batch crafted case '{name}': first token "
+                                 f"{int(toks[i, 0])}, built for {first}")
+    for pad, mt in ((200, 200), (201, 200), (203, 7), (256, 1)):
+        encode_pair(case.strings, pad, mt, f"crafted ({len(case.strings)}, "
+                    f"{pad}+16), max_tokens={mt}", cdd, host=False)
+    for B in (1, 13, 0):
+        encode_pair(case.strings[:B], 200, 200, f"crafted B={B}", cdd, host=False)
+    log("parity", f"encode_batch == plain, exact, on crafted tables: {len(named)} "
+        "named cases (buckets of 40-130 suffixes with the first fit at 0, 31, 32, "
+        "33, 39, 63, 99, 127, none, and only past max_bucket; prefix probes hit at "
+        "lanes 0, 31, 40, 69 and across the table's end, and stop on an empty slot "
+        "at lanes 0, 31, 45 and at probe_max; short chains hit at lanes 35 and 39, "
+        "the longer of two lengths winning, miss past probe_max and behind an "
+        "empty slot; 8, 9, 12, 16 and 17 bytes left; bytes with no entry), each "
+        f"starting with the token it was built for, and {len(case.strings)} "
+        "strings at row widths 216, 217, 219 and 272 (aligned and not), "
+        "max_tokens 200, 7 and 1, and B = 1, 13 and 0 (no launch)")
 
     def decode_pair(tokens, n, case):
         T, N = torch.from_numpy(tokens).to(dev), torch.from_numpy(n).to(dev)
@@ -549,6 +714,20 @@ def main() -> int:
     log("numbers", f"[{card}] encode {throughput_mib_s(raw_bytes, encode_s):.3f} "
         f"MiB/s ({raw_bytes} B in {encode_s:.3f} s, {launches['encode_batch']} "
         f"launches); ratio {corpus.ratio:.4f}")
+    used_all = np.unique(pay_tokens)
+    n_long_all = int((dictionary.lens[used_all] > 8).sum())
+    flat_bytes = (raw_bytes + 8 * n_all + 4 * pay_tokens.size
+                  + 16 * (used_all.size - n_long_all) + 40 * n_long_all)
+    enc_acts = windows["encode"][1]
+    if "encode_batch" in enc_acts:
+        log("numbers", f"[{card}] encode_batch over the whole corpus (the encode "
+            f"window, torch.profiler): {enc_acts['encode_batch'][0]} launches, "
+            f"{enc_acts['encode_batch'][1] * 1e3:.4f} ms device; bound "
+            f"{corpus_bound_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms summed over the "
+            f"launches ({corpus_bound_bytes} B: padded rows in, padded token rows "
+            f"out); {flat_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms for the bytes of "
+            f"the strings, lengths, tokens, counts and table records alone "
+            f"({flat_bytes} B)")
     lat_ms = np.asarray(lat) * 1e3
     log("numbers", f"[{card}] multiget {n_all / multiget_s:.1f} lookups/s, "
         f"{throughput_mib_s(decoded_bytes, multiget_s):.3f} MiB/s ({len(batches)} "
@@ -559,6 +738,10 @@ def main() -> int:
         f"MiB/s ({raw_bytes} B, {all_tokens.size} tokens in one launch, "
         f"{decode_all_s[0] * 1e3:.2f} ms; three more calls: "
         + ", ".join(f"{throughput_mib_s(raw_bytes, s):.1f}" for s in decode_all_s[1:]) + " MiB/s)")
+    log("numbers", f"[{card}] decode_all in a fresh process (after one 1-token "
+        "decode; no encode): " + ", ".join(
+            f"{throughput_mib_s(raw_bytes, s):.1f}" for s in fresh["seconds"])
+        + " MiB/s (first call, three more)")
     log("numbers", f"[{card}] scan in segment-sized ranges "
         f"{throughput_mib_s(raw_bytes, scan_seg_s):.1f} MiB/s, {n_all / scan_seg_s:.0f} "
         f"strings/s ({n_seg} ranges in {scan_seg_s:.3f} s); scan(0, n) "
@@ -598,19 +781,13 @@ def main() -> int:
                 lambda: ref.decode_batch_ref(T, N_, dd.mat16, dd.lens), 5,
                 T.numel() * 4 + N_.numel() * 4 + rows_touched(T, N_).numel() * 20
                 + int(olen.sum()) + olen.numel() * 4)
-    long_tok = torch.from_numpy(dictionary.lens > 8).to(dev)
-    for cap, (D, L) in enc_inputs.items():
+    for label, (D, L, n_launch) in enc_inputs.items():
+        cap = D.shape[1] - 16
         toks, n = onpair_encode.encode_batch(D, L, dd, cap)
-        used = rows_touched(toks, n)
-        n_long = int(long_tok[used].sum())
-        # inputs read once, outputs written once, and one table record per
-        # distinct token emitted: a 16-byte short-table slot, or a prefix slot
-        # + bucket bounds + a suffix record (40 B) for a token longer than 8 B
-        measure("encode_batch", f"(64, {cap}+16)", enc_shapes[cap],
+        measure("encode_batch", label, n_launch,
                 lambda: onpair_encode.encode_batch(D, L, dd, cap),
                 lambda: ref.encode_batch_ref(D, L, dd, cap), 1,
-                D.numel() + L.numel() * 4 + toks.numel() * 4 + n.numel() * 4
-                + 16 * (used.numel() - n_long) + 40 * n_long)
+                encode_bytes(D, L, toks, n))
     stream_total = counts.total["decode_tokens"]
     for (shape, (T, n, out_len)), n_launch in zip(
             stream_inputs.items(),
@@ -657,5 +834,39 @@ def main() -> int:
     return 0
 
 
+def decode_all_probe(path: str) -> int:
+    """``chip_smoke.py --decode-all-probe FILE``: time four calls of
+    ``Decoder.decode_all`` on the dictionary and corpus saved in FILE, in
+    this fresh process, after one 1-token decode that loads the kernels;
+    print the seconds and the first output's sha256 as one JSON line."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core.api import CompressedCorpus
+    from repro_torch.core.codec import Decoder
+    from repro_torch.core.packed import PackedDictionary
+
+    z = np.load(path)
+    blob, lens = z["entries"].tobytes(), z["entry_lens"].tolist()
+    ends = np.cumsum(lens).tolist()
+    entries = [blob[e - n : e] for e, n in zip(ends, lens)]
+    decoder = Decoder(PackedDictionary.build(entries), device=torch.device("cuda"))
+    corpus = CompressedCorpus(payload=z["payload"], offsets=z["offsets"],
+                              raw_bytes=int(z["raw_bytes"]),
+                              meta={"compressor": "onpair16"})
+    decoder._device.decode_stream(np.zeros(1, np.int32))
+    seconds, digest = [], None
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = decoder.decode_all(corpus)
+        seconds.append(time.perf_counter() - t0)
+        digest = digest or hashlib.sha256(whole).hexdigest()
+    print(json.dumps({"seconds": seconds, "sha256": digest}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--decode-all-probe"]:
+        sys.exit(decode_all_probe(sys.argv[2]))
     sys.exit(main())

@@ -29,15 +29,12 @@ class Encoder:
 
     def encode(self, strings: list[bytes]) -> CompressedCorpus:
         """Compress every string independently into one corpus."""
-        toks = self._device.encode_bucketed(strings)
-        counts = np.fromiter((t.size for t in toks), dtype=np.int64,
-                             count=len(toks))
-        offsets = np.zeros(len(toks) + 1, dtype=np.int64)
+        tokens, counts = self._device.encode_flat(strings)
+        offsets = np.zeros(len(strings) + 1, dtype=np.int64)
         np.cumsum(counts * 2, out=offsets[1:])
-        payload = (np.concatenate(toks).astype("<u2").view(np.uint8)
-                   if len(toks) else np.zeros(0, dtype=np.uint8))
+        payload = tokens.astype("<u2").view(np.uint8)
         return CompressedCorpus(payload=payload, offsets=offsets,
-                                raw_bytes=sum(len(s) for s in strings),
+                                raw_bytes=sum(map(len, strings)),
                                 meta={"compressor": "onpair16"})
 
     def encode_one(self, s: bytes) -> bytes:

@@ -40,8 +40,8 @@ SIGNATURES = {
     # data, lens, s_lo, s_hi, s_len, s_tok, p_lo, p_hi, p_len, p_bucket,
     # bucket_start, bucket_size, suf_lo, suf_hi, suf_len, suf_tok, tokens,
     # n_tokens, B, Lp, max_tokens, s_size, p_size, s_probe_max, p_probe_max,
-    # max_bucket, stream
-    "onpair_encode_batch": [_P] * 18 + [_I] * 8 + [_P],
+    # max_bucket, aligned, stream
+    "onpair_encode_batch": [_P] * 18 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,10 @@
 """``encode_batch``: the OnPair16 greedy longest-prefix-match parse kernel.
 
 The write path: one launch parses a padded batch of strings against the
-frozen dictionary's static LPM tables, one string per thread
-(``csrc/onpair_encode.cu``). For CPU tensors the wrapper runs the plain
-version, :func:`repro_torch.kernels.ref.encode_batch_ref`.
+frozen dictionary's static LPM tables, a warp per string with the lanes
+sharing each token's probes and bucket walk, on a grid over every string of
+the batch (``csrc/onpair_encode.cu``). For CPU tensors the wrapper runs the
+plain version, :func:`repro_torch.kernels.ref.encode_batch_ref`.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ def encode_batch(data: torch.Tensor, lens: torch.Tensor, dd: DeviceDict,
     if B == 0:
         return tokens, n_tokens
     lib = _build.load()
+    # rows read as aligned u32 words when their stride and base allow it
+    aligned = Lp % 4 == 0 and data.data_ptr() % 4 == 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.onpair_encode_batch(
@@ -55,7 +58,7 @@ def encode_batch(data: torch.Tensor, lens: torch.Tensor, dd: DeviceDict,
             *(getattr(dd, name).data_ptr() for name in _TABLES),
             tokens.data_ptr(), n_tokens.data_ptr(),
             B, Lp, max_tokens, dd.s_lo.shape[0], dd.p_lo.shape[0],
-            dd.s_probe_max, dd.p_probe_max, dd.max_bucket, stream)
+            dd.s_probe_max, dd.p_probe_max, dd.max_bucket, int(aligned), stream)
     _build.check(rc, "encode_batch")
     encode_batch.launches += 1
     return tokens, n_tokens

@@ -28,22 +28,41 @@ _DECODE_BATCHES = {
 #: geometric byte-length bucket capacities of the bucketed encode path;
 #: grown by doubling when a longer string arrives
 _ENCODE_LEN_BUCKETS = (32, 128, 512)
-#: batch dimension of every bucketed encode launch
-_ENCODE_PAD_BATCH = 64
+#: most strings a bucketed encode launch takes: about 8x the 8,448 warps an
+#: H100 holds at once (132 SMs x 64), a warp per string; a length group of
+#: more strings goes up in chunks of this many, the last chunk unpadded
+_ENCODE_PAD_BATCH = 1 << 16
+#: most padded input bytes, strings x (cap + 16), one encode launch takes;
+#: a launch's buffers come to about 6x this (the bytes, the int32 token
+#: rows and their mask). 64 MiB keeps caps up to 1,008 B (the main path's
+#: 32, 128 and 512 among them) at full chunks of encode_pad_batch strings,
+#: and gives longer strings smaller chunks
+_ENCODE_CHUNK_BYTES = 1 << 26
 
 
-def pack_strings(strings: list[bytes], pad_len: int | None = None,
+def pack_strings(strings, pad_len: int | None = None,
                  pad_extra: int = 16) -> tuple[np.ndarray, np.ndarray]:
-    """list[bytes] -> (data uint8[B, L + pad_extra] zero padded, lens int32[B])."""
-    L = pad_len if pad_len is not None else max((len(s) for s in strings), default=1)
-    data = np.zeros((len(strings), L + pad_extra), dtype=np.uint8)
-    lens = np.zeros(len(strings), dtype=np.int32)
-    for i, s in enumerate(strings):
-        if len(s) > L:
-            raise ValueError(f"string {i} has {len(s)} bytes > pad_len={L}")
-        data[i, : len(s)] = np.frombuffer(s, dtype=np.uint8)
-        lens[i] = len(s)
-    return data, lens
+    """list[bytes] (or an object array of bytes) -> (data uint8[B, L +
+    pad_extra] zero padded, lens int32[B]).
+
+    One join of the strings and one scatter of every byte to its row and
+    column: no loop per string.
+    """
+    B = len(strings)
+    lens = np.fromiter(map(len, strings), dtype=np.int64, count=B)
+    L = pad_len if pad_len is not None else (int(lens.max()) if B else 1)
+    too_long = np.flatnonzero(lens > L)
+    if too_long.size:
+        i = int(too_long[0])
+        raise ValueError(f"string {i} has {lens[i]} bytes > pad_len={L}")
+    width = L + pad_extra
+    data = np.zeros((B, width), dtype=np.uint8)
+    flat = np.frombuffer(b"".join(strings), dtype=np.uint8)
+    if flat.size:
+        # byte k of the join goes to k + (row start - string start)
+        shift = np.arange(B, dtype=np.int64) * width - (np.cumsum(lens) - lens)
+        data.reshape(-1)[np.arange(flat.size) + np.repeat(shift, lens)] = flat
+    return data, lens.astype(np.int32)
 
 
 def pack_token_matrix(token_lists: list[np.ndarray], pad_tokens: int | None = None,
@@ -92,27 +111,25 @@ class OnPairDevice:
                                  "(entries of at most 16 bytes)")
             self.dictionary = dictionary
             self.dd = DeviceDict.build(dictionary, self.device)
-        #: host copy of the token lengths: output sizes and string
-        #: boundaries of a decoded stream are computed on the host
-        self.lens = self.dd.lens.cpu().numpy().astype(np.int64)
         self._path = "cuda" if self.device.type == "cuda" else "ref"
-        # every launch uses a (encode_pad_batch, cap + 16) shape drawn from
-        # encode_len_caps, as in the reference's bucketed encode
+        # every launch uses a (<= encode_pad_batch, cap + 16) shape with cap
+        # drawn from encode_len_caps, as in the reference's bucketed encode
         self.encode_len_caps: list[int] = list(_ENCODE_LEN_BUCKETS)
         self.encode_pad_batch: int = _ENCODE_PAD_BATCH
 
-    # ----------------------------------------------------------- encode
-    def encode_batch(self, strings: list[bytes], max_tokens: int | None = None,
-                     pad_len: int | None = None) -> tuple[np.ndarray, np.ndarray]:
-        """Compress a batch; returns (tokens int32[B, T], n_tokens int32[B])."""
-        data, lens = pack_strings(strings, pad_len=pad_len)
-        if max_tokens is None:
-            max_tokens = data.shape[1] - 16 or 1
-        toks, n = onpair_encode.encode_batch(
-            torch.from_numpy(data).to(self.device),
-            torch.from_numpy(lens).to(self.device), self.dd, max_tokens)
-        return toks.cpu().numpy(), n.cpu().numpy()
+    @property
+    def resident_bytes(self) -> int:
+        """The dictionary's in-memory footprint as the reference counts it
+        (``PackedDictionary.resident_bytes``). Over bare device tables it is
+        the same quantity computed from them: the tables hold the same
+        arrays, and the entry bytes and 4-byte offsets that the host
+        dictionary adds follow from ``lens``."""
+        if self.dictionary is not None:
+            return self.dictionary.resident_bytes
+        return (self.dd.nbytes + int(self.dd.lens.sum())
+                + 4 * (self.dd.num_entries + 1))
 
+    # ----------------------------------------------------------- encode
     def _encode_cap(self, n: int) -> int:
         """Smallest bucket capacity >= n bytes, growing the set by doubling."""
         for cap in self.encode_len_caps:
@@ -124,27 +141,54 @@ class OnPairDevice:
             self.encode_len_caps.append(cap)
         return cap
 
-    def encode_bucketed(self, strings: list[bytes]) -> list[np.ndarray]:
-        """Batch encode in a bounded set of shapes.
+    def _encode_chunk(self, strings, cap: int) -> tuple[np.ndarray, np.ndarray]:
+        """One launch at (len(strings), cap + 16) with ``max_tokens = cap``:
+        (the strings' tokens back to back, int32; their counts, int32)."""
+        data, lens = pack_strings(strings, pad_len=cap)
+        toks, n = onpair_encode.encode_batch(
+            torch.from_numpy(data).to(self.device),
+            torch.from_numpy(lens).to(self.device), self.dd, cap)
+        flat = toks[torch.arange(cap, device=toks.device) < n[:, None]]
+        return flat.cpu().numpy(), n.cpu().numpy()
 
-        Strings are grouped into geometric byte-length buckets; each group is
-        padded (with empty rows) to ``encode_pad_batch`` and encoded at the
-        shape (pad_batch, cap + 16) with ``max_tokens = cap`` (one token per
-        byte is the worst case). Returns the int32 token arrays in input order.
+    def encode_flat(self, strings: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+        """Batch encode in a bounded set of shapes; returns (tokens int32,
+        every string's stream back to back in input order; counts int64[B]).
+
+        Strings are grouped into geometric byte-length buckets, and each
+        group goes up in chunks of at most ``encode_pad_batch`` strings and
+        ``_ENCODE_CHUNK_BYTES`` padded bytes, one launch each at (chunk,
+        cap + 16) with ``max_tokens = cap`` (one token per byte is the worst
+        case).
         """
-        out: list[np.ndarray] = [None] * len(strings)  # type: ignore[list-item]
-        pb = self.encode_pad_batch
-        groups: dict[int, list[int]] = {}
-        for i, s in enumerate(strings):
-            groups.setdefault(self._encode_cap(max(len(s), 1)), []).append(i)
-        for cap, idxs in sorted(groups.items()):
-            for k in range(0, len(idxs), pb):
-                sel = idxs[k : k + pb]
-                chunk = [strings[i] for i in sel] + [b""] * (pb - len(sel))
-                toks, n = self.encode_batch(chunk, max_tokens=cap, pad_len=cap)
-                for j, i in enumerate(sel):
-                    out[i] = toks[j, : n[j]]
-        return out
+        B = len(strings)
+        counts = np.zeros(B, dtype=np.int64)
+        if B == 0:
+            return np.zeros(0, dtype=np.int32), counts
+        lens = np.fromiter(map(len, strings), dtype=np.int64, count=B)
+        np.maximum(lens, 1, out=lens)
+        self._encode_cap(int(lens.max()))  # grows the caps to cover every string
+        caps = np.asarray(self.encode_len_caps, dtype=np.int64)
+        cap_of = caps[np.searchsorted(caps, lens, side="left")]
+        objs = np.empty(B, dtype=object)  # gathers a chunk's strings in C
+        objs[:] = strings
+        chunks = []
+        for cap in np.unique(cap_of):
+            members = np.flatnonzero(cap_of == cap)
+            pb = max(1, min(self.encode_pad_batch,
+                            _ENCODE_CHUNK_BYTES // (int(cap) + 16)))
+            for k in range(0, members.size, pb):
+                sel = members[k : k + pb]
+                flat, n = self._encode_chunk(objs[sel], int(cap))
+                counts[sel] = n
+                chunks.append((sel, flat, n.astype(np.int64)))
+        starts = np.cumsum(counts) - counts
+        tokens = np.empty(int(counts.sum()), dtype=np.int32)
+        for sel, flat, n in chunks:
+            # token k of the chunk moves by (string's start - its chunk start)
+            shift = starts[sel] - (np.cumsum(n) - n)
+            tokens[np.arange(flat.size) + np.repeat(shift, n)] = flat
+        return tokens, counts
 
     def warm_encode(self) -> None:
         """Build or load the kernel library now (on CUDA), so the first
@@ -153,7 +197,12 @@ class OnPairDevice:
             _build.load()
 
     def encode_to_bytes(self, strings: list[bytes]) -> list[bytes]:
-        return [t.astype("<u2").tobytes() for t in self.encode_bucketed(strings)]
+        """Each string's compressed payload (its tokens as little-endian
+        u16), in input order."""
+        tokens, counts = self.encode_flat(strings)
+        payload = tokens.astype("<u2").tobytes()
+        bounds = np.concatenate(([0], np.cumsum(2 * counts))).tolist()
+        return [payload[bounds[k] : bounds[k + 1]] for k in range(len(strings))]
 
     # ----------------------------------------------------------- decode
     def decode_batch(self, tokens: np.ndarray, n_tokens: np.ndarray) -> list[bytes]:
@@ -180,23 +229,32 @@ class OnPairDevice:
     def decode_run(self, tokens: np.ndarray, counts) -> list[bytes]:
         """Decode the token streams of consecutive strings, concatenated in
         ``tokens`` (string k holds ``counts[k]`` tokens), in one call of the
-        stream kernel, and split the bytes per string. One host cumsum of
-        the token lengths gives both the exact output size and the string
-        boundaries."""
+        stream kernel, and split the bytes per string.
+
+        The cumsum of the token lengths, which gives the exact output size
+        and the string boundaries, runs on the tokens' device, and only the
+        boundaries come back. On CUDA the bytes come down into pinned host
+        memory, which torch's host allocator keeps for the next call: after
+        a process's first call of a size, the copy touches no fresh pages.
+        """
         tokens = np.ascontiguousarray(tokens, dtype=np.int32)
-        if tokens.size and (tokens.min() < 0 or tokens.max() >= self.dd.num_entries):
+        counts = np.asarray(counts, dtype=np.int64)
+        if not tokens.size:
+            return [b""] * counts.size
+        if tokens.min() < 0 or tokens.max() >= self.dd.num_entries:
             raise ValueError(f"token ids must lie in [0, {self.dd.num_entries})")
-        byte_cum = np.zeros(tokens.size + 1, dtype=np.int64)
-        np.cumsum(self.lens[tokens], out=byte_cum[1:])
-        decoded = b""
-        if tokens.size:
-            out, _ = onpair_decode.decode_tokens(
-                torch.from_numpy(tokens).to(self.device), tokens.size,
-                self.dd.mat16, self.dd.lens, int(byte_cum[-1]))
-            decoded = out.cpu().numpy().tobytes()
-        bounds = byte_cum[np.concatenate(([0], np.cumsum(counts)))]
-        return [decoded[int(bounds[k]) : int(bounds[k + 1])]
-                for k in range(len(counts))]
+        tok = torch.from_numpy(tokens).to(self.device)
+        byte_cum = torch.zeros(tokens.size + 1, dtype=torch.int64, device=self.device)
+        torch.cumsum(self.dd.lens[tok], 0, dtype=torch.int64, out=byte_cum[1:])
+        at = np.concatenate(([0], np.cumsum(counts), [tokens.size]))
+        bounds = byte_cum[torch.from_numpy(at).to(self.device)].cpu().numpy()
+        out, _ = onpair_decode.decode_tokens(
+            tok, tokens.size, self.dd.mat16, self.dd.lens, int(bounds[-1]))
+        if out.is_cuda:
+            out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True).copy_(out)
+        decoded = out.numpy().tobytes()
+        b = bounds.tolist()
+        return [decoded[b[k] : b[k + 1]] for k in range(counts.size)]
 
     def multiget_decode(self, token_lists: list[np.ndarray],
                         pad_tokens: int | None = None,

@@ -59,8 +59,9 @@ class MutableStringStore(CompressedStringStore):
 
     ``corpus`` may be ``None`` to start an empty store that appends fill.
     ``config`` is the OnPair16 training configuration ``compact()`` retrains
-    with (default ``OnPairConfig.onpair16()``); other keywords are the read
-    store's.
+    with: ``build`` passes the one it trained with, and a store opened over
+    a dictionary without one defaults to ``OnPairConfig.onpair16()``. Other
+    keywords are the read store's.
     """
 
     #: optimistic encode attempts before extend() takes the store lock for
@@ -85,9 +86,8 @@ class MutableStringStore(CompressedStringStore):
         self._n_total = 0
         if corpus is None:
             corpus = _empty_corpus()
-        super().__init__(dictionary, corpus, **store_kw)
+        super().__init__(dictionary, corpus, config=config, **store_kw)
         self._n_total = self.segments.n_strings
-        self.config = config
         self._encoder = self._make_encoder(self._device)
         # serialises encoder use between extend() callers (the bucketed
         # encode grows its shape list on demand)

@@ -20,7 +20,8 @@ class StoreStats:
         self.padded_rows = 0        # batch rows incl. padding (waste metric)
         self.decode_seconds = 0.0
         self.scan_strings = 0       # strings returned by scan()
-        self.decode_shapes: set[tuple[int, int]] = set()  # (B, T) launched
+        # (B, T) decode shapes launched; the reference's name for them
+        self.jit_shapes: set[tuple[int, int]] = set()
         # per-store instruments registered into the process registry,
         # labelled by the store's device type
         labels = {"backend": backend}
@@ -41,7 +42,7 @@ class StoreStats:
         self.decoded_strings += n_real
         self.decoded_bytes += nbytes
         self.decode_seconds += seconds
-        self.decode_shapes.add(shape)
+        self.jit_shapes.add(shape)
 
     def snapshot(self, cache_stats: dict | None = None) -> dict:
         elapsed = time.perf_counter() - self.started_at
@@ -55,11 +56,12 @@ class StoreStats:
             "pad_efficiency": round(
                 self.decoded_strings / self.padded_rows, 4
             ) if self.padded_rows else 1.0,
-            "decode_shapes": sorted(self.decode_shapes),
+            "jit_shapes": sorted(self.jit_shapes),
             "decode_mib_s": round(
                 throughput_mib_s(self.decoded_bytes, self.decode_seconds), 2
             ) if self.decode_seconds else 0.0,
             "lookups_per_s": round(self.lookups / elapsed, 1) if elapsed else 0.0,
             "multiget_latency": self._lat.summary(),
+            "multiget_latency_hist": self._lat.state(),
             "cache": cache_stats or {},
         }

@@ -51,11 +51,14 @@ class CompressedStringStore:
 
     ``dictionary`` is the frozen :class:`PackedDictionary` the corpus was
     encoded with, or its tables already on ``device`` as a
-    :class:`DeviceDict` (see :mod:`repro_torch.convert`).
+    :class:`DeviceDict` (see :mod:`repro_torch.convert`). ``config`` is the
+    training configuration the dictionary came from, where it is known
+    (``build`` passes its own); the writable store retrains with it.
     """
 
     def __init__(self, dictionary: PackedDictionary | DeviceDict,
                  corpus: CompressedCorpus, *,
+                 config: OnPairConfig | None = None,
                  device: str | torch.device = "cuda",
                  strings_per_segment: int = 4096,
                  cache_bytes: int = 8 << 20, batch_size: int = 256,
@@ -65,6 +68,7 @@ class CompressedStringStore:
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self._device = OnPairDevice(dictionary, device)
+        self.config = config
         self.backend = self._device.device.type
         self.corpus = corpus
         self.segments = SegmentedCorpus.from_corpus(corpus, strings_per_segment)
@@ -96,11 +100,11 @@ class CompressedStringStore:
         """Train an OnPair16 dictionary on ``strings``, encode them through
         the encode kernel, and open a store over the result."""
         device = resolve_device(device)
-        result = train_dictionary(
-            strings, OnPairConfig.onpair16(sample_bytes=sample_bytes, seed=seed))
-        dictionary = PackedDictionary.build(result.entries)
+        config = OnPairConfig.onpair16(sample_bytes=sample_bytes, seed=seed)
+        dictionary = PackedDictionary.build(
+            train_dictionary(strings, config).entries)
         corpus = Encoder(dictionary, device=device).encode(strings)
-        return cls(dictionary, corpus, device=device, **store_kw)
+        return cls(dictionary, corpus, config=config, device=device, **store_kw)
 
     # -------------------------------------------------------------- tail hooks
     # A store may hold strings beyond its sealed segments: the writable
@@ -143,13 +147,17 @@ class CompressedStringStore:
 
     @property
     def memory_bytes(self) -> int:
-        """Resident footprint: compressed payload + offsets of every sealed
-        segment on the host, the dictionary tables on the device, the
-        decoded-string cache, and any unsealed tail payload."""
+        """Resident footprint, the reference's quantity: compressed payload +
+        offsets of every sealed segment, the dictionary's
+        ``resident_bytes`` (decode matrix and LPM tables included; over bare
+        device tables the same count taken from them, see
+        :attr:`OnPairDevice.resident_bytes`), the decoded-string cache, and
+        any unsealed tail payload. The tables' bytes on the device are
+        ``stats_snapshot()["device_dict_bytes"]``."""
         seg_bytes = sum(s.payload_bytes + s.offsets.nbytes
                         for s in self.segments.segments)
-        return (seg_bytes + self._device.dd.nbytes + self.cache.current_bytes
-                + self._tail_payload_bytes())
+        return (seg_bytes + self._device.resident_bytes
+                + self.cache.current_bytes + self._tail_payload_bytes())
 
     def get(self, i: int) -> bytes:
         """Point lookup of string ``i``."""
@@ -222,7 +230,8 @@ class CompressedStringStore:
                     n_tail_strings=self._tail_n(),
                     n_segments=self.segments.n_segments,
                     bucket_caps=[int(c) for c in self.bucket_caps],
-                    memory_bytes=self.memory_bytes)
+                    memory_bytes=self.memory_bytes,
+                    device_dict_bytes=self._device.dd.nbytes)
         return snap
 
     # --------------------------------------------------------------- internals

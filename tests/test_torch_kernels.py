@@ -127,9 +127,9 @@ def test_encode_wrapper_checks_inputs(dicts):
 
 
 def test_bucketed_encode_matches_reference_parse(dicts, titles):
-    """The port's bucketed path (caps 32/128/512, doubled on demand, pad
-    batch 64) equals the reference's parse, strings longer than 512 B
-    included."""
+    """The port's bucketed path (caps 32/128/512, doubled on demand, one
+    launch per cap group here) equals the reference's parse, strings longer
+    than 512 B included."""
     comp, _, d, _ = dicts
     strings = titles[:150] + EDGE + [b"y" * 700]
     port = ops.OnPairDevice(d, CPU)

@@ -105,6 +105,23 @@ def _counts(store):
     return snap["n_sealed_strings"], snap["n_tail_strings"], snap["n_strings"]
 
 
+def test_build_then_compact_retrains_with_build_settings():
+    """build(sample_bytes=, seed=) keeps its training config, so compact()
+    retrains exactly as the reference's store (from its artifact's config)."""
+    strings = load_dataset("book_titles", 1 << 19)
+    assert strings == ref_load_dataset("book_titles", 1 << 19)
+    kw = dict(sample_bytes=256 << 10, seed=7, strings_per_segment=1024)
+    port = MutableStringStore.build(strings, device=CPU, **kw)
+    refstore = RefMutable.build(strings, backend="numpy", **kw)
+    assert port.config == OnPairConfig.onpair16(sample_bytes=256 << 10, seed=7)
+    got, want = port.compact(), refstore.compact()
+    assert got["ratio_after"] == want["ratio_after"]
+    assert got["ratio_before"] == want["ratio_before"]
+    a, b = port.snapshot_corpus(), refstore.snapshot_corpus()
+    np.testing.assert_array_equal(a.payload, b.payload)
+    np.testing.assert_array_equal(a.offsets, b.offsets)
+
+
 # ------------------------------------------------- append == from-scratch
 def test_append_matches_from_scratch_build(titles, artifact, port_dict):
     base, extra = titles[:700], titles[700:1300]

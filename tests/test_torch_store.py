@@ -9,6 +9,7 @@ import torch
 
 from repro.core import make_onpair16
 from repro.data.synth import load_dataset as ref_load_dataset
+from repro.obs.metrics import merge_hist_states
 from repro.store import CompressedStringStore as RefStore
 from repro_torch import convert
 from repro_torch.core.codec import Decoder, Encoder
@@ -166,7 +167,7 @@ def test_stats_snapshot_and_decode_counter(port_store, titles):
     snap = port_store.stats_snapshot()
     assert snap["backend"] == "cpu" and snap["n_strings"] == len(titles)
     assert snap["n_segments"] == -(-len(titles) // SEG)
-    assert all(shape[0] == 256 for shape in snap["decode_shapes"])
+    assert all(shape[0] == 256 for shape in snap["jit_shapes"])
     assert snap["memory_bytes"] > port_store.corpus.compressed_bytes
     assert ops._DECODE_BATCHES["ref"].value > before
 
@@ -220,3 +221,60 @@ def test_decode_counter_and_spans_reach_obs(port_store, titles):
         "value"] == 0
     lat = series[("repro_store_multiget_latency_us", (("backend", "cpu"),))]
     assert sum(lat["counts"]) >= 1
+
+
+#: counters of the reference's snapshot that arrive with later slices of the
+#: port (locate / scan_prefix and the cold tier)
+NOT_PORTED_YET = {"cold_lookups", "locates", "locate_hits", "prefix_scans"}
+
+
+@pytest.mark.parametrize("cache_bytes", [0, 8 << 20])
+@pytest.mark.parametrize("which", ["built", "converted"])
+def test_memory_bytes_equals_reference(ref_comp, titles, cache_bytes, which):
+    """The reference's quantity: segments + the dictionary's resident bytes +
+    cache + tail. Over bare device tables ("converted") the port counts the
+    same bytes from the tables. The device tables are a key of their own."""
+    comp, corpus = ref_comp
+    d = comp.dictionary
+    if which == "built":
+        dictionary = PackedDictionary.build(d.entries)
+    else:
+        dictionary = convert.dictionary_from_reference(
+            {k: getattr(d, k) for k in ref.ARRAY_FIELDS}, d.s_probe_max,
+            d.p_probe_max, max(1, d.max_bucket_size), device="cpu")
+    kw = dict(strings_per_segment=SEG, cache_bytes=cache_bytes)
+    store = CompressedStringStore(dictionary, corpus, device="cpu", **kw)
+    want = RefStore(comp, corpus, backend="numpy", **kw)
+    assert store.memory_bytes == want.memory_bytes
+    ids = _ids(len(titles), 5, size=300)
+    assert store.multiget(ids) == want.multiget(ids)
+    assert store.cache.current_bytes == want.cache.current_bytes
+    assert (store.cache.current_bytes > 0) == (cache_bytes > 0)
+    assert store.memory_bytes == want.memory_bytes
+    snap = store.stats_snapshot()
+    assert snap["memory_bytes"] == want.stats_snapshot()["memory_bytes"]
+    assert snap["device_dict_bytes"] == store._device.dd.nbytes > 0
+
+
+def test_stats_snapshot_keys_match_reference(ref_comp, titles):
+    """After the same multigets the port's snapshot has the reference's keys,
+    less the not-yet-ported counters and plus the device table bytes, and
+    its latency histogram merges with the reference's."""
+    comp, corpus = ref_comp
+    kw = dict(strings_per_segment=SEG, cache_bytes=1 << 16)
+    store = CompressedStringStore(PackedDictionary.build(comp.dictionary.entries),
+                                  corpus, device="cpu", **kw)
+    want = RefStore(comp, corpus, backend="numpy", **kw)
+    for seed in (1, 2, 3):
+        ids = _ids(len(titles), seed, size=200)
+        assert store.multiget(ids) == want.multiget(ids)
+    snap, ref_snap = store.stats_snapshot(), want.stats_snapshot()
+    assert NOT_PORTED_YET <= set(ref_snap)
+    assert set(snap) == (set(ref_snap) - NOT_PORTED_YET) | {"device_dict_bytes"}
+    assert snap["jit_shapes"] and all(b == 256 for b, _ in snap["jit_shapes"])
+    hist, ref_hist = snap["multiget_latency_hist"], ref_snap["multiget_latency_hist"]
+    assert hist["bounds"] == ref_hist["bounds"] and sum(hist["counts"]) == 3
+    merged = merge_hist_states([hist, ref_hist])
+    assert merged["counts"] == [a + b for a, b in zip(hist["counts"],
+                                                      ref_hist["counts"])]
+    assert merged["sum"] == pytest.approx(hist["sum"] + ref_hist["sum"])
