@@ -11,7 +11,8 @@ after:
 1. read path: an OnPair16 dictionary trained on an 8 MiB sample, the whole
    corpus encoded through ``Encoder`` (the encode kernel), and every string
    read back once through ``CompressedStringStore.multiget`` (the decode
-   kernel) in shuffled 1024-id batches;
+   kernel, one launch per call over the store's device mirror of its
+   segments) in shuffled 1024-id batches;
 2. full decompression: ``Decoder.decode_all`` of the whole corpus (the
    stream kernel, one launch);
 3. scan: ``CompressedStringStore.scan`` over every id, in segment-sized
@@ -19,17 +20,21 @@ after:
 4. writable store: a ``MutableStringStore`` over the first half, the second
    half appended by ``extend`` in 1024-string batches with seals running
    off-thread (the encode kernel), multigets and a scan across the
-   sealed/tail boundary (the decode and stream kernels), and one
+   sealed/tail boundary (the decode kernel once per call for sealed ids and
+   once more when a call touches the tail, and the stream kernel), and one
    ``compact()`` (all three).
 
-Every string each path returns is checked against its source, and each
-path's encode launches are recomputed from the bucketed encode's chunking
-(per length cap, chunks of up to ``encode_pad_batch`` strings and
-``ops._ENCODE_CHUNK_BYTES`` padded bytes). Afterwards
-it profiles a window of each path (device busy share), holds each kernel
-against its plain PyTorch version on the card, exactly, at the paths'
-shapes (for the encode kernel: every launch of the whole-corpus encode, and
-the corpus payload equals the plain version's tokens), at edge cases and,
+Every string each path returns is checked against its source, each path's
+encode launches are recomputed from the bucketed encode's chunking (per
+length cap, chunks of up to ``encode_pad_batch`` strings and
+``ops._ENCODE_CHUNK_BYTES`` padded bytes), and its decode launches from its
+multiget calls. Afterwards it profiles a window of each path (device busy
+share, and the host's own time under cProfile), holds each kernel against
+its plain PyTorch version on the card, exactly, at the paths' shapes (for
+the encode kernel: every launch of the whole-corpus encode, and the corpus
+payload equals the plain version's tokens; for the decode kernel: a real
+multiget's rows, every store bucket's strings from the device mirror, tail
+rows and the padded contract), at edge cases and,
 for the encode kernel, on the crafted tables of
 ``repro_torch.kernels.crafted`` (buckets of more than 32 suffixes, probe
 chains past a warp, 8 or 9 bytes left, truncation, batches of 1, 13 and 0
@@ -45,7 +50,6 @@ from __future__ import annotations
 import cProfile
 import hashlib
 import json
-import math
 import os
 import pstats
 import subprocess
@@ -90,7 +94,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 #: kernel symbols as the profiler names them (the stream kernel's three
 #: passes share a prefix)
-KERNEL_SYMBOLS = {"decode_compact": "decode_compact_kernel",
+KERNEL_SYMBOLS = {"decode_compact": "decode_rows_kernel",
                   "encode_batch": "encode_batch_kernel",
                   "decode_tokens": "decode_stream_"}
 #: device kernels per wrapper call
@@ -263,8 +267,8 @@ def main() -> int:
     counts = PathCounts({"decode_compact": onpair_decode.decode_compact,
                          "encode_batch": onpair_encode.encode_batch,
                          "decode_tokens": onpair_decode.decode_tokens},
-                        [ref.decode_batch_ref, ref.encode_batch_ref,
-                         ref.decode_tokens_ref])
+                        [ref.decode_batch_ref, ref.decode_rows_ref,
+                         ref.encode_batch_ref, ref.decode_tokens_ref])
 
     # --------------------------------------- 4.1 read path: encode + multiget
     counts.start()
@@ -310,6 +314,9 @@ def main() -> int:
     if store.stats.decoded_strings != n_all:
         raise AssertionError("not every string was decoded exactly once")
     decoded_bytes = store.stats.decoded_bytes
+    log("read", f"device mirror of the sealed segments: {store.resident_device_bytes} "
+        f"B on the card ({store.resident.n_bytes} B of payload, "
+        f"{8 * (store.resident.n_strings + 1)} B of token starts, spare room)")
 
     # launches per shape, recomputed from the inputs, must add up to the counts
     pad_batch = store._device.encode_pad_batch
@@ -322,15 +329,14 @@ def main() -> int:
         f"{pad_batch} strings)")
     tok_counts = corpus.token_counts()
     caps_dec = [int(c) for c in store.bucket_caps]
-    dec_shapes = dict.fromkeys(caps_dec, 0)
-    for ids in batches:
-        b = np.searchsorted(store.bucket_caps, tok_counts[ids], side="left")
-        for j, cap in enumerate(caps_dec):
-            dec_shapes[cap] += math.ceil(int((b == j).sum()) / store.batch_size)
-    if len(read_launches) != launches["encode_batch"] or \
-            sum(dec_shapes.values()) != launches["decode_compact"]:
-        raise AssertionError(f"launches per shape {enc_shapes} {dec_shapes} do "
-                             f"not add up to {launches}")
+    if len(read_launches) != launches["encode_batch"]:
+        raise AssertionError(f"encode launches per shape {enc_shapes} do not add "
+                             f"up to {launches['encode_batch']}")
+    # one decode launch per multiget call: every id of a call misses (no
+    # cache), and 1,024 ids stay under a launch's row cap
+    if launches["decode_compact"] != len(batches):
+        raise AssertionError(f"read: {launches['decode_compact']} decode launches "
+                             f"for {len(batches)} multiget calls")
 
     # ---------------------------------------- 4.2 full decompression
     counts.start()
@@ -419,8 +425,13 @@ def main() -> int:
         raise AssertionError("the writable store has no sealed/tail boundary")
     rng = np.random.default_rng(SEED + 1)
     around = [i for i in range(sealed - 5, sealed + 5) if 0 <= i < n_all]
-    for ids in (around, rng.integers(0, n_all, 4096).tolist() + around,
-                rng.integers(sealed, n_all, 512).tolist()):
+    tail_ids = rng.integers(sealed, n_all, 512).tolist()
+    # the calls' decode launches: one for sealed ids, one for tail ids
+    write_multigets = [around, rng.integers(0, n_all, 4096).tolist() + around, tail_ids]
+    expect_decode = sum(any(i < sealed for i in ids) + any(i >= sealed for i in ids)
+                        for ids in write_multigets)
+    tail_launches = sum(any(i >= sealed for i in ids) for ids in write_multigets)
+    for ids in write_multigets:
         check_strings("writable multiget", wstore.multiget(ids),
                       [strings[i] for i in ids])
     for lo, hi in ((sealed - 3000, n_all), (sealed - 1, sealed + 1),
@@ -433,6 +444,9 @@ def main() -> int:
     ids = rng.integers(0, n_all, 4096).tolist()
     check_strings("multiget after compact", wstore.multiget(ids),
                   [strings[i] for i in ids])
+    expect_decode += 1  # compact sealed every string
+    log("write", f"device mirror after compact: {wstore.resident_device_bytes} B on "
+        f"the card for {wstore.resident.n_strings} sealed strings")
     snap = wstore.snapshot_corpus()
     same_payload = (np.array_equal(snap.payload, corpus.payload)
                     and np.array_equal(snap.offsets, corpus.offsets))
@@ -445,6 +459,10 @@ def main() -> int:
     if write["encode_batch"] != n_extend + len(read_launches):
         raise AssertionError(f"write: {write['encode_batch']} encode launches, "
                              f"expected {n_extend} (extend) + {len(read_launches)} (compact)")
+    if write["decode_compact"] != expect_decode:
+        raise AssertionError(f"write: {write['decode_compact']} decode launches for "
+                             f"{len(write_multigets) + 1} multiget calls, expected "
+                             f"{expect_decode} ({tail_launches} of them for the tail)")
     del snap
 
     # ------------------------------------------- 5. device share of each path
@@ -509,6 +527,9 @@ def main() -> int:
         f"{host_profile(extend_window)}")
     log("host", f"[{card}] decode_all under cProfile: "
         f"{host_profile(lambda: decoder.decode_all(corpus))}")
+    log("host", f"[{card}] {MULTIGET_WINDOW} multiget calls of {MULTIGET_IDS} ids "
+        "under cProfile: " + host_profile(
+            lambda: [store.multiget(ids) for ids in batches[:MULTIGET_WINDOW]], top=12))
     del wwin
 
     # ---------------------------------------------------- 6. kernel parity
@@ -659,11 +680,119 @@ def main() -> int:
             pair = decode_pair(*ops.pack_token_matrix(
                 lists, pad_tokens=cap, pad_batch=store.batch_size), f"(256, {cap})")
             dec_inputs.setdefault(cap, pair)
-    log("parity", "decode_compact == plain, exact: B=0, n_tokens=0, T=1, 16-byte "
-        f"rows, up to {PARITY_STRINGS} corpus strings per store bucket at "
-        f"(256, cap) for caps {caps_dec}")
+    log("parity", "decode_compact (padded contract) == plain, exact: B=0, "
+        f"n_tokens=0, T=1, 16-byte rows, up to {PARITY_STRINGS} corpus strings per "
+        f"store bucket at (256, cap) for caps {caps_dec}")
 
     host_lens = dictionary.lens.astype(np.int64)
+    res = store.resident
+    res_tokens, res_starts = res.on_device()
+
+    def row_tokens(ids) -> np.ndarray:
+        """The corpus tokens of strings ``ids``, back to back (int64)."""
+        return np.concatenate([pay_tokens[tok_off[i] : tok_off[i + 1]] for i in ids]
+                              + [np.zeros(0, np.uint16)]).astype(np.int64)
+
+    def rows_bytes(toks: np.ndarray, M: int, by_id: bool, out_bytes: int) -> int:
+        """Bytes a rows launch must move: the output offsets; by id, the ids
+        and each row's two starts, else the rows' M + 1 starts; the tokens
+        (uint16 by id, int32 from the host); each distinct dictionary row
+        (16 B) and length (4 B) once; the decoded bytes and out_len."""
+        starts = 8 * M + 16 * M if by_id else 8 * (M + 1)
+        return (8 * (M + 1) + starts + (2 if by_id else 4) * toks.size
+                + 20 * np.unique(toks).size + out_bytes + 4 * M)
+
+    def rows_pair(tokens, starts, ids, off, case, lens_t=None, size=None):
+        """decode_rows == plain on the card: out_len, and each row's bytes up
+        to the smaller of its range and its out_len (all of them unless the
+        length table lies or the output is cut short at ``size``); one
+        launch, none for no rows."""
+        lens_t = dd.lens if lens_t is None else lens_t
+        off_t = torch.from_numpy(np.asarray(off, np.int64)).to(dev)
+        ids_t = None if ids is None else torch.from_numpy(
+            np.asarray(ids, np.int64)).to(dev)
+        size = int(off[-1]) if size is None else size
+        before = onpair_decode.decode_compact.launches
+        out, olen = onpair_decode.decode_rows(tokens, starts, off_t, size, dd.mat16,
+                                              lens_t, ids=ids_t)
+        launched = onpair_decode.decode_compact.launches - before
+        rout, rlen = ref.decode_rows_ref(tokens, starts, off_t, size, dd.mat16, lens_t,
+                                         ids=ids_t)
+        check_equal("decode_compact", f"rows {case} out_len", olen, rlen)
+        span = off_t[1:] - off_t[:-1]
+        keep = torch.minimum(span, olen.to(torch.int64))
+        row = torch.repeat_interleave(torch.arange(span.numel(), device=dev),
+                                      span)[:size]
+        valid = torch.arange(size, device=dev) - off_t[:-1][row] < keep[row]
+        check_equal("decode_compact", f"rows {case} bytes", out[valid], rout[valid])
+        if launched != (1 if len(off) > 1 else 0):
+            raise AssertionError(f"decode_rows {case}: {launched} launches")
+        return tokens, starts, ids_t, off_t, size
+
+    def host_rows(lists, dtype=np.int32):
+        """Rows from host token lists (as the tail and Decoder.multiget
+        send them): (tokens, starts, output offsets by the true lengths)."""
+        toks = np.concatenate([np.asarray(t, np.int64) for t in lists]
+                              + [np.zeros(0, np.int64)])
+        counts = np.fromiter(map(len, lists), np.int64, len(lists))
+        starts = np.concatenate(([0], np.cumsum(counts)))
+        cum = np.concatenate(([0], np.cumsum(host_lens[toks])))
+        return (torch.from_numpy(toks.astype(dtype)).to(dev),
+                torch.from_numpy(starts).to(dev), np.concatenate(([0], np.cumsum(
+                    np.diff(cum[starts])))))
+
+    def mirror_off(ids) -> np.ndarray:
+        return np.concatenate(([0], np.cumsum(res.raw_lens[np.asarray(ids)])))
+
+    longest = int(np.argmax(tok_counts))
+    edge_lists = [[], sixteen[:1], sixteen[:8], sixteen[:9], sixteen[:17],
+                  np.resize(sixteen, 100), [], ones[:33], row_tokens([longest]), []]
+    for dtype in (np.int32, np.uint16):
+        tk, st, off = host_rows(edge_lists, dtype)
+        rows_pair(tk, st, None, off, f"edge rows ({np.dtype(dtype).name}: 0 tokens, "
+                  "16-byte entries, 1-100 tokens, the corpus's longest string)")
+        rows_pair(tk, st, [], [0], f"M=0 ({np.dtype(dtype).name})")
+        rows_pair(tk, st, None, off, f"an output 20 bytes short of the last row's "
+                  f"range ({np.dtype(dtype).name})", size=int(off[-1]) - 20)
+    lie = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        1, 17, dictionary.num_entries).astype(np.int32)).to(dev)
+    ids = order[:2000]
+    rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
+              "2,000 mirror rows under a lying length table", lens_t=lie)
+    ids = np.asarray([order[0], -1, res.n_strings, order[1], res.n_strings + 7,
+                      -(1 << 40)], np.int64)
+    has = (ids >= 0) & (ids < res.n_strings)
+    room = np.where(has, res.raw_lens[np.where(has, ids, 0)], 16)
+    rows_pair(res_tokens, res_starts, ids, np.concatenate(([0], np.cumsum(room))),
+              "ids without a string (-1, n, n + 7, -2**40) among mirror rows")
+    for j, cap in enumerate(caps_dec):
+        ids = np.flatnonzero(bucket_of == j)[:PARITY_STRINGS]
+        rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
+                  f"{ids.size} mirror rows of bucket cap {cap}")
+    rows_inputs = {}
+    ids = np.asarray(batches[0])
+    rows_inputs[f"a {ids.size}-id multiget from the mirror (uint16)"] = (
+        rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
+                  "a real 1,024-id multiget"),
+        rows_bytes(row_tokens(ids), ids.size, True, int(mirror_off(ids)[-1])),
+        counts.total["decode_compact"] - tail_launches)
+    ids = order[: ops._DECODE_MAX_ROWS]
+    rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
+              f"a full launch of {ids.size} mirror rows")
+    tail_u = list(dict.fromkeys(tail_ids))
+    tk, st, off = host_rows([row_tokens([i]) for i in tail_u])
+    rows_inputs[f"{len(tail_u)} tail rows from the host (int32)"] = (
+        rows_pair(tk, st, None, off, "the writable phase's tail rows"),
+        rows_bytes(row_tokens(tail_u), len(tail_u), False, int(off[-1])), tail_launches)
+    log("parity", "decode_compact (rows) == plain, exact: int32 and uint16 edge rows "
+        "(0 tokens, 16-byte entries, 1 to 100 tokens and the corpus's longest "
+        f"string of {tok_counts[longest]}), M=0 (no launch), an output cut short "
+        "(no write past it), a lying length table "
+        "(no row past its range, out_len the lying total), ids without a string "
+        f"(nothing written, out_len 0), up to {PARITY_STRINGS} "
+        f"mirror rows of each bucket cap {caps_dec}, a real 1,024-id multiget, a "
+        f"full launch of {ops._DECODE_MAX_ROWS} rows, the tail rows of the writable "
+        "phase")
 
     def stream_pair(tokens, n, max_out, case):
         """The stream kernel == its plain version: every output byte (zeros
@@ -774,9 +903,17 @@ def main() -> int:
             "plain_ms": cuda_ms(plain_fn, plain_reps, warmup=1),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes})
 
+    for label, ((tk, st, ids_t, off_t, size), nbytes, n_launch) in rows_inputs.items():
+        measure("decode_compact", label, n_launch,
+                lambda: onpair_decode.decode_rows(tk, st, off_t, size, dd.mat16,
+                                                  dd.lens, ids=ids_t),
+                lambda: ref.decode_rows_ref(tk, st, off_t, size, dd.mat16, dd.lens,
+                                            ids=ids_t), 5, nbytes)
+    # the padded contract at the store's former (256, cap) shapes, on no path
+    # since the multiget launches rows; kept beside the earlier design's times
     for cap, (T, N_) in dec_inputs.items():
         out, olen = onpair_decode.decode_compact(T, N_, dd.mat16, dd.lens)
-        measure("decode_compact", f"(256, {cap})", dec_shapes[cap],
+        measure("decode_compact", f"padded (256, {cap})", 0,
                 lambda: onpair_decode.decode_compact(T, N_, dd.mat16, dd.lens),
                 lambda: ref.decode_batch_ref(T, N_, dd.mat16, dd.lens), 5,
                 T.numel() * 4 + N_.numel() * 4 + rows_touched(T, N_).numel() * 20

@@ -65,7 +65,8 @@ class Decoder:
         return self.multiget(corpus, [i])[0]
 
     def multiget(self, corpus: CompressedCorpus, ids) -> list[bytes]:
-        """Batched random access; one kernel launch."""
+        """Batched random access: the strings' tokens go up back to back,
+        unpadded, and decode in one kernel launch."""
         lists = [np.asarray(corpus.string_tokens(int(i)), dtype=np.int32)
                  for i in ids]
         return self._device.multiget_decode(lists)

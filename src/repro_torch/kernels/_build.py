@@ -33,8 +33,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argument types of each extern "C" launcher (pointers and the stream as
 #: c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    # tokens, n_tokens, mat16, lens, out, out_len, B, T, W, stream
-    "onpair_decode_compact": [_P] * 6 + [_I] * 3 + [_P],
+    # tokens, tok_bytes, n_tok_total, starts, n_starts, ids, counts, max_count,
+    # out_start, mat16, lens, n_entries, out, out_size, out_len, M, stream
+    "onpair_decode_rows": [_P, _I, _L, _P, _L, _P, _P, _I, _P, _P, _P, _I, _P,
+                           _L, _P, _I, _P],
     # tokens, mat16, lens, out, out_len, tile_sums, T, n, max_out, stream
     "onpair_decode_stream": [_P] * 6 + [_I, _I, _L, _P],
     # data, lens, s_lo, s_hi, s_len, s_tok, p_lo, p_hi, p_len, p_bucket,

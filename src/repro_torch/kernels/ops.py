@@ -1,9 +1,9 @@
 """Host <-> device bridge over the OnPair16 kernels.
 
 Bridges host-side types (a frozen dictionary, ``list[bytes]``, ragged token
-arrays) to the padded device layouts the kernels take, and back. Used by the
-codec (:mod:`repro_torch.core.codec`) and the store's multiget, scan and
-write paths.
+arrays, string ids) to the device layouts the kernels take, and back. Used
+by the codec (:mod:`repro_torch.core.codec`) and the store's multiget, scan
+and write paths.
 """
 
 from __future__ import annotations
@@ -38,6 +38,9 @@ _ENCODE_PAD_BATCH = 1 << 16
 #: 32, 128 and 512 among them) at full chunks of encode_pad_batch strings,
 #: and gives longer strings smaller chunks
 _ENCODE_CHUNK_BYTES = 1 << 26
+#: most rows one launch of the multiget decode kernel takes, as encode caps
+#: its strings: a larger multiget goes up in chunks of this many
+_DECODE_MAX_ROWS = 1 << 16
 
 
 def pack_strings(strings, pad_len: int | None = None,
@@ -112,6 +115,9 @@ class OnPairDevice:
             self.dictionary = dictionary
             self.dd = DeviceDict.build(dictionary, self.device)
         self._path = "cuda" if self.device.type == "cuda" else "ref"
+        #: the entry lengths on the host, which size a decode's output
+        #: before its launch
+        self.host_lens = self.dd.lens.cpu().numpy().astype(np.int64)
         # every launch uses a (<= encode_pad_batch, cap + 16) shape with cap
         # drawn from encode_len_caps, as in the reference's bucketed encode
         self.encode_len_caps: list[int] = list(_ENCODE_LEN_BUCKETS)
@@ -205,22 +211,6 @@ class OnPairDevice:
         return [payload[bounds[k] : bounds[k + 1]] for k in range(len(strings))]
 
     # ----------------------------------------------------------- decode
-    def decode_batch(self, tokens: np.ndarray, n_tokens: np.ndarray) -> list[bytes]:
-        """Batched random-access decode: tokens int32[B, T] -> list[bytes]."""
-        tokens = np.ascontiguousarray(tokens, dtype=np.int32)
-        n_tokens = np.ascontiguousarray(n_tokens, dtype=np.int32)
-        if tokens.size and (tokens.min() < 0 or tokens.max() >= self.dd.num_entries):
-            raise ValueError(f"token ids must lie in [0, {self.dd.num_entries})")
-        _DECODE_BATCHES[self._path].inc()
-        with TRACER.span("kernel.decode_batch", path=self._path,
-                         shape=list(tokens.shape)):
-            out, olen = onpair_decode.decode_compact(
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(n_tokens).to(self.device),
-                self.dd.mat16, self.dd.lens)
-            out, olen = out.cpu().numpy(), olen.cpu().numpy()
-        return [out[i, : olen[i]].tobytes() for i in range(out.shape[0])]
-
     def decode_stream(self, tokens: np.ndarray) -> bytes:
         """Decode one token stream (any concatenation of compressed strings)
         in one call of the stream kernel."""
@@ -256,11 +246,65 @@ class OnPairDevice:
         b = bounds.tolist()
         return [decoded[b[k] : b[k + 1]] for k in range(counts.size)]
 
-    def multiget_decode(self, token_lists: list[np.ndarray],
-                        pad_tokens: int | None = None,
-                        pad_batch: int | None = None) -> list[bytes]:
-        """Batched random-access decode of ragged token streams: assembles the
-        padded (B, T) matrix (see :func:`pack_token_matrix`) and runs the
-        per-string decode kernel once. Returns only the real rows."""
-        tokens, n_tokens = pack_token_matrix(token_lists, pad_tokens, pad_batch)
-        return self.decode_batch(tokens, n_tokens)[: len(token_lists)]
+    def multiget_decode(self, token_lists: list[np.ndarray]) -> list[bytes]:
+        """Random-access decode of ragged token streams, one string each, in
+        one launch of the multiget decode kernel (per ``_DECODE_MAX_ROWS``
+        strings): the tokens go up back to back, unpadded, with their
+        starts."""
+        counts = np.fromiter(map(len, token_lists), dtype=np.int64,
+                             count=len(token_lists))
+        if not counts.size:
+            return []
+        tokens = np.concatenate(token_lists).astype(np.int32)
+        if tokens.size and (tokens.min() < 0 or tokens.max() >= self.dd.num_entries):
+            raise ValueError(f"token ids must lie in [0, {self.dd.num_entries})")
+        starts = np.zeros(counts.size + 1, dtype=np.int64)
+        np.cumsum(counts, out=starts[1:])
+        byte_cum = np.zeros(tokens.size + 1, dtype=np.int64)
+        np.cumsum(self.host_lens[tokens], out=byte_cum[1:])
+        return self._decode_rows(torch.from_numpy(tokens).to(self.device),
+                                 np.diff(byte_cum[starts]), starts)
+
+    def decode_ids(self, tokens: torch.Tensor, starts: torch.Tensor,
+                   ids: np.ndarray, raw_lens: np.ndarray) -> list[bytes]:
+        """Random-access decode of strings ``ids`` of a token buffer already
+        on the device (``tokens`` uint16, string i at ``[starts[i],
+        starts[i + 1])``), whose decoded lengths ``raw_lens`` the host
+        knows: only the ids and the output offsets go up, in one copy, and
+        only the decoded bytes come down."""
+        return self._decode_rows(tokens, np.asarray(raw_lens, dtype=np.int64),
+                                 np.asarray(ids, dtype=np.int64), starts)
+
+    def _decode_rows(self, tokens: torch.Tensor, raw_lens: np.ndarray,
+                     index: np.ndarray, starts: torch.Tensor | None = None
+                     ) -> list[bytes]:
+        """One launch of the rows kernel per ``_DECODE_MAX_ROWS`` rows.
+        ``index`` holds the rows' string ids into the device ``starts``, or,
+        with ``starts`` None, the rows' own token starts (one more entry than
+        rows). Each launch uploads that and its output offsets (the cumsum of
+        ``raw_lens``) as one int64 buffer, and copies exactly its output bytes
+        down into pinned memory, which torch's host allocator keeps for the
+        next call."""
+        M = raw_lens.size
+        out: list[bytes] = []
+        for r0 in range(0, M, _DECODE_MAX_ROWS):
+            m = min(M - r0, _DECODE_MAX_ROWS)
+            off = np.zeros(m + 1, dtype=np.int64)
+            np.cumsum(raw_lens[r0 : r0 + m], out=off[1:])
+            head = index[r0 : r0 + m + (starts is None)]
+            up = torch.from_numpy(np.concatenate((head, off))).to(self.device)
+            ids, rows_starts = (up[:m], starts) if starts is not None else (None, up[: m + 1])
+            size = int(off[-1])
+            _DECODE_BATCHES[self._path].inc()
+            with TRACER.span("kernel.decode_batch", path=self._path, rows=m,
+                             bytes=size):
+                data, _ = onpair_decode.decode_rows(
+                    tokens, rows_starts, up[head.size :], size, self.dd.mat16,
+                    self.dd.lens, ids=ids)
+                if data.is_cuda:
+                    data = torch.empty(size, dtype=torch.uint8,
+                                       pin_memory=True).copy_(data)
+                decoded = data.numpy().tobytes()
+            b = off.tolist()
+            out.extend([decoded[b[k] : b[k + 1]] for k in range(m)])
+        return out

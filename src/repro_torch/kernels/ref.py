@@ -188,6 +188,72 @@ def decode_batch_ref(tokens: torch.Tensor, n_tokens: torch.Tensor,
 decode_batch_ref.calls = 0
 
 
+def _token_ids(tokens: torch.Tensor) -> torch.Tensor:
+    """uint16 or int32 token ids as int64 (uint16 through an int16 view, so
+    no uint16 arithmetic is needed on any device)."""
+    if tokens.dtype == torch.uint16:
+        return tokens.view(torch.int16).to(torch.int64) & 0xFFFF
+    return tokens.to(torch.int64)
+
+
+def decode_rows_ref(tokens: torch.Tensor, starts: torch.Tensor,
+                    out_start: torch.Tensor, out_size: int, mat16: torch.Tensor,
+                    lens: torch.Tensor, ids: torch.Tensor | None = None):
+    """Plain version of ``decode_rows``: M ragged rows -> (out
+    uint8[out_size], out_len int32[M]), M = ``out_start.numel() - 1``.
+
+    Row m is string ``id = ids[m]`` (``m`` when ids is None): its tokens
+    ``tokens[starts[id] : starts[id + 1]]`` (none when the end is before
+    the start, or when ``id`` is outside ``[0, starts.numel() - 1)``). Each token writes the first ``clamp(lens[tok], 0, 16)``
+    bytes of its ``mat16`` row at the row's cursor, which then moves by that
+    length; bytes at or past ``out_start[m + 1] - out_start[m]`` are
+    dropped, so a row never writes outside its range, nor outside ``out``.
+    Tokens past the buffer and ids outside the dictionary decode to
+    nothing. ``out_len[m]`` is the row's full decoded length; bytes of the
+    output no row wrote are zero here and unspecified in the kernel. A
+    gather of every row's tokens, a prefix sum per row, and one masked
+    scatter.
+    """
+    decode_rows_ref.calls += 1
+    dev = tokens.device
+    M = out_start.shape[0] - 1
+    N = mat16.shape[0]
+    out = torch.zeros(out_size, dtype=torch.uint8, device=dev)
+    sid = ids if ids is not None else torch.arange(M, device=dev)
+    S = starts.shape[0]
+    has = (sid >= 0) & (sid < S - 1)                 # ids with a string
+    sid = torch.where(has, sid, 0)
+    s = n = torch.zeros_like(sid)
+    if S:
+        s = torch.where(has, starts[sid], 0)
+        n = torch.where(has, starts[(sid + 1).clamp(max=S - 1)] - s, 0).clamp(min=0)
+    row = torch.repeat_interleave(torch.arange(M, device=dev), n)
+    first = n.cumsum(0) - n
+    idx = s[row] + torch.arange(row.numel(), device=dev) - first[row]
+    T = tokens.shape[0]
+    valid = (idx >= 0) & (idx < T)
+    tok = _token_ids(tokens)[idx.clamp(0, max(T - 1, 0))] if T else idx
+    valid &= (tok >= 0) & (tok < N)
+    tok = torch.where(valid, tok, 0)
+    tl = torch.where(valid, lens.to(torch.int64)[tok].clamp(0, 16), 0) if N else \
+        torch.zeros_like(tok)
+    ex = tl.cumsum(0) - tl
+    pos = ex - ex[first[row]]                       # start inside the row
+    j = torch.arange(16, device=dev)
+    base = out_start[:-1]
+    room = torch.minimum(out_start[1:] - base, out_size - base)  # bytes a row may write
+    room = torch.where((base < 0) | (base > out_size), 0, room)
+    dst = base[row][:, None] + pos[:, None] + j
+    mask = (j < tl[:, None]) & (pos[:, None] + j < room[row][:, None])
+    if N:
+        out[dst[mask]] = mat16[tok][mask]
+    out_len = torch.zeros(M, dtype=torch.int64, device=dev).index_add_(0, row, tl)
+    return out, out_len.to(torch.int32)
+
+
+decode_rows_ref.calls = 0
+
+
 def decode_tokens_ref(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
                       lens: torch.Tensor, max_out: int):
     """Plain version of ``decode_tokens``: one token stream -> (out

@@ -9,9 +9,9 @@ The writable store layers that lifecycle over
   (the port's :class:`~repro_torch.core.codec.Encoder`, sharing the store's
   device tables) into an open tail of per-string token-stream payloads;
 * once the tail reaches ``strings_per_segment`` strings it is sealed into a
-  new immutable segment, off-thread by default; ``multiget`` (the decode
-  kernel) and ``scan`` (the stream kernel) answer across sealed segments
-  and the tail the whole time;
+  new immutable segment, off-thread by default, and mirrored on the
+  device; ``multiget`` (the decode kernel) and ``scan`` (the stream
+  kernel) answer across sealed segments and the tail the whole time;
 * a :class:`~repro_torch.store.drift.DriftMonitor` watches the achieved
   ratio of appended data against the train-time ratio; ``compact()``
   re-trains a dictionary on the live data (with the store's
@@ -36,6 +36,7 @@ from repro_torch.core.packed import PackedDictionary
 from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.kernels.ref import DeviceDict
 from repro_torch.store.drift import DriftMonitor
+from repro_torch.store.resident import ResidentSegments
 from repro_torch.store.segment import SegmentedCorpus
 from repro_torch.store.store import CompressedStringStore
 
@@ -122,8 +123,8 @@ class MutableStringStore(CompressedStringStore):
     def _tail_payload_bytes(self) -> int:
         return self._tail_bytes
 
-    def _tail_string_tokens(self, local: int) -> np.ndarray:
-        return np.frombuffer(self._tail[local], dtype="<u2")
+    def _tail_token_lists(self, local: np.ndarray) -> list[np.ndarray]:
+        return [np.frombuffer(self._tail[i], dtype="<u2") for i in local.tolist()]
 
     def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
         if lo >= hi:
@@ -232,9 +233,10 @@ class MutableStringStore(CompressedStringStore):
 
     def _commit_seal_locked(self, k: int, payload: np.ndarray,
                             offsets: np.ndarray, raw_bytes: int) -> None:
-        """Append the built segment and drop the first ``k`` tail strings.
-        Bumps ``_tail_gen``: any other in-flight snapshot of the old tail
-        prefix is now stale and must not commit."""
+        """Append the built segment, to the device mirror too, and drop the
+        first ``k`` tail strings. Bumps ``_tail_gen``: any other in-flight
+        snapshot of the old tail prefix is now stale and must not commit."""
+        self.resident.append(payload, offsets)  # checks the tokens first
         self.segments.append_segment(payload, offsets, raw_bytes=raw_bytes)
         del self._tail[:k]
         del self._tail_raw[:k]
@@ -347,6 +349,8 @@ class MutableStringStore(CompressedStringStore):
         self.corpus = corpus
         self.segments = SegmentedCorpus.from_corpus(
             corpus, self.segments.strings_per_segment)
+        self.resident = ResidentSegments(self._device)
+        self.resident.append(corpus.payload, corpus.offsets)
         self._set_bucket_caps(corpus.token_counts())
         self._encoder = (encoder if encoder is not None
                          else self._make_encoder(self._device))

@@ -2,10 +2,11 @@
 
 A :class:`SegmentedCorpus` splits one :class:`~repro_torch.core.api.CompressedCorpus`
 into fixed-size segments of consecutive strings. Each segment carries a
-zero-copy payload view plus *segment-local* byte offsets, and global string
-ids route as ``gid -> (segment, local)`` by bisecting the segments' base ids:
-the writable store seals appended tails into segments of their own, so
-segments may differ in size.
+zero-copy payload view plus *segment-local* byte offsets; a range of global
+ids finds its segments by bisecting the segments' base ids: the writable
+store seals appended tails into segments of their own, so segments may
+differ in size. (Point lookups read the device mirror,
+:mod:`repro_torch.store.resident`.)
 """
 
 from __future__ import annotations
@@ -34,10 +35,6 @@ class Segment:
     @property
     def payload_bytes(self) -> int:
         return int(self.payload.size)
-
-    def string_tokens(self, local: int) -> np.ndarray:
-        """u16 token IDs of local string ``local`` (zero-copy view)."""
-        return self.tokens(local, local + 1)
 
     def tokens(self, lo: int = 0, hi: int | None = None) -> np.ndarray:
         """One u16 token stream covering local strings [lo, hi)."""
@@ -97,16 +94,6 @@ class SegmentedCorpus:
         self.raw_bytes += int(raw_bytes)
         return seg
 
-    def route(self, gid: int) -> tuple[Segment, int]:
-        """Global string id -> (segment, local id). Raises IndexError when
-        out of range (negative ids included — the store is an id-addressed
-        service, not a Python sequence)."""
-        if not 0 <= gid < self.n_strings:
-            raise IndexError(
-                f"string id {gid} out of range [0, {self.n_strings})")
-        seg = self.segments[bisect.bisect_right(self._base_ids, gid) - 1]
-        return seg, gid - seg.base_id
-
     def overlapping(self, lo: int, hi: int):
         """Segments covering any id in [lo, hi), found by bisect: a narrow
         scan touches only the segments it covers."""
@@ -117,10 +104,6 @@ class SegmentedCorpus:
             if seg.base_id >= hi:
                 break
             yield seg
-
-    def string_tokens(self, gid: int) -> np.ndarray:
-        seg, local = self.route(gid)
-        return seg.string_tokens(local)
 
     def token_counts(self) -> np.ndarray:
         """Tokens per string over the whole corpus, in global id order."""

@@ -16,8 +16,11 @@ class StoreStats:
         self.lookups = 0            # ids requested (incl. duplicates/cached)
         self.decoded_strings = 0    # strings actually decoded (cache misses)
         self.decoded_bytes = 0
-        self.batches = 0            # decode kernel invocations
-        self.padded_rows = 0        # batch rows incl. padding (waste metric)
+        # (batch_size, cap) batches of misses and their rows, padding
+        # included, as the reference launched them (the port launches once
+        # per call: its kernel counters count that)
+        self.batches = 0
+        self.padded_rows = 0
         self.decode_seconds = 0.0
         self.scan_strings = 0       # strings returned by scan()
         # (B, T) decode shapes launched; the reference's name for them
@@ -35,14 +38,18 @@ class StoreStats:
         self._lookups_total.inc(n_ids)
         self._lat.record_seconds(seconds)
 
-    def record_decode_batch(self, shape: tuple[int, int], n_real: int,
-                            nbytes: int, seconds: float) -> None:
-        self.batches += 1
-        self.padded_rows += shape[0]
+    def record_decode(self, chunks: dict[tuple[int, int], int], n_real: int,
+                      nbytes: int, seconds: float) -> None:
+        """One call's decoded misses. ``chunks`` maps each padded ``(B, T)``
+        shape the reference would launch for them to its number of
+        batches."""
+        for shape, k in chunks.items():
+            self.batches += k
+            self.padded_rows += shape[0] * k
+            self.jit_shapes.add(shape)
         self.decoded_strings += n_real
         self.decoded_bytes += nbytes
         self.decode_seconds += seconds
-        self.jit_shapes.add(shape)
 
     def snapshot(self, cache_stats: dict | None = None) -> dict:
         elapsed = time.perf_counter() - self.started_at

@@ -3,13 +3,14 @@
 A frozen dictionary plus a :class:`~repro_torch.core.api.CompressedCorpus`
 become a store answering ``get(i)`` / ``multiget(ids)`` / ``scan(lo, hi)``.
 
-Hot path (``multiget``): cache misses are routed through the segment layer
-to their token streams, *length-bucketed* into a small set of padded
-``(batch_size, cap)`` shapes, and decoded by the per-string decode kernel
-(:func:`repro_torch.kernels.onpair_decode.decode_compact` via
-``OnPairDevice.multiget_decode``). The bucket capacities come from quantiles
-of the corpus's token counts, as in the reference store, so a batch pads
-its rows to a nearby length rather than to the longest string.
+Hot path (``multiget``): the sealed segments live on the device too
+(:class:`~repro_torch.store.resident.ResidentSegments`), so a multiget
+dedupes its ids with numpy, probes the cache, and decodes every sealed miss
+in one launch of the per-string decode kernel
+(:func:`repro_torch.kernels.onpair_decode.decode_rows` via
+``OnPairDevice.decode_ids``), sending up only ids and output offsets and
+bringing down only the decoded bytes. Misses in a writable store's unsealed
+tail take a second launch with their tokens sent from the host.
 
 Range path (``scan``): each segment's covered slice is one token stream,
 decoded by the stream kernel
@@ -34,6 +35,7 @@ from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.kernels.ref import DeviceDict
 from repro_torch.obs import TRACER
 from repro_torch.store.cache import LRUCache
+from repro_torch.store.resident import ResidentSegments
 from repro_torch.store.segment import SegmentedCorpus
 from repro_torch.store.stats import StoreStats
 
@@ -44,6 +46,17 @@ _BUCKET_QUANTILES = (0.5, 0.9, 0.99, 1.0)
 
 def _ceil8(x: int) -> int:
     return max(8, (int(x) + 7) // 8 * 8)
+
+
+def _id_array(ids) -> np.ndarray:
+    """Requested ids as int64, converted in C where they are integers
+    already (a list of ints, a range, an integer array)."""
+    if not isinstance(ids, (np.ndarray, list, tuple, range)):
+        ids = list(ids)
+    arr = np.asarray(ids)
+    if arr.dtype.kind not in "iu":
+        arr = np.asarray([int(i) for i in arr.ravel()], dtype=np.int64)
+    return arr.ravel().astype(np.int64, copy=False)
 
 
 class CompressedStringStore:
@@ -72,6 +85,8 @@ class CompressedStringStore:
         self.backend = self._device.device.type
         self.corpus = corpus
         self.segments = SegmentedCorpus.from_corpus(corpus, strings_per_segment)
+        self.resident = ResidentSegments(self._device)
+        self.resident.append(corpus.payload, corpus.offsets)
         self.cache = LRUCache(cache_bytes)
         self.batch_size = int(batch_size)
         self.num_buckets = int(num_buckets)
@@ -117,20 +132,11 @@ class CompressedStringStore:
     def _tail_payload_bytes(self) -> int:
         return 0
 
-    def _tail_string_tokens(self, local: int) -> np.ndarray:
-        raise IndexError(f"tail string {local} does not exist "
-                         "(a read-only store has no tail)")
+    def _tail_token_lists(self, local: np.ndarray) -> list[np.ndarray]:
+        raise IndexError("a read-only store has no tail strings")
 
     def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
         return []
-
-    def _string_tokens(self, gid: int) -> np.ndarray:
-        """u16 token ids of global string ``gid`` (sealed or tail). Call
-        under ``self._lock``."""
-        sealed = self.segments.n_strings
-        if gid < sealed:
-            return self.segments.string_tokens(gid)
-        return self._tail_string_tokens(gid - sealed)
 
     # ---------------------------------------------------------------- queries
     @property
@@ -144,6 +150,13 @@ class CompressedStringStore:
 
     def __len__(self) -> int:
         return self.n_strings
+
+    @property
+    def resident_device_bytes(self) -> int:
+        """Bytes the device mirror of the sealed segments holds (payload and
+        token starts, spare room included); not part of ``memory_bytes``,
+        which counts what the reference counts."""
+        return self.resident.device_bytes
 
     @property
     def memory_bytes(self) -> int:
@@ -167,32 +180,42 @@ class CompressedStringStore:
         """Batched point lookup; duplicates decode once, order is preserved.
 
         Raises IndexError if any id is out of ``[0, n_strings)`` (before any
-        decode work happens).
+        decode work happens). The ids are deduplicated in first-seen order
+        and, where the cache has capacity, probed one by one in that order,
+        as the reference does; a cache of no capacity counts every unique id
+        as a miss at once.
         """
         t0 = time.perf_counter()
-        ids = [int(i) for i in ids]
+        arr = _id_array(ids)
         n = self.n_strings
-        for i in ids:
-            if not 0 <= i < n:
-                raise IndexError(f"string id {i} out of range [0, {n})")
+        bad = (arr < 0) | (arr >= n)
+        if bad.any():
+            raise IndexError(f"string id {int(arr[bad.argmax()])} out of range [0, {n})")
         with self._lock:
-            results: dict[int, bytes] = {}
-            misses: list[int] = []
-            for i in ids:  # unique-preserving cache probe: duplicates decode once
-                if i in results:
-                    continue
-                hit = self.cache.get(i)
-                if hit is not None:
-                    results[i] = hit
-                else:
-                    results[i] = b""  # claimed; overwritten by decode below
-                    misses.append(i)
-            if misses:
-                with TRACER.span("store.decode", batch=len(misses),
+            uniq, first, inverse = np.unique(arr, return_index=True,
+                                             return_inverse=True)
+            order = np.argsort(first)
+            uniq = uniq[order]                      # first-seen order
+            rank = np.empty_like(order)
+            rank[order] = np.arange(order.size)
+            vals = np.empty(uniq.size, dtype=object)
+            if self.cache.capacity_bytes > 0:
+                vals[:] = [self.cache.get(i) for i in uniq.tolist()]
+                miss = np.equal(vals, None)
+            else:
+                self.cache.misses += uniq.size      # every probe would miss
+                miss = np.ones(uniq.size, dtype=bool)
+            misses = uniq[miss]
+            if misses.size:
+                with TRACER.span("store.decode", batch=int(misses.size),
                                  backend=self.backend):
-                    self._decode_misses(misses, results)
-            out = [results[i] for i in ids]
-        self.stats.record_multiget(len(ids), time.perf_counter() - t0)
+                    decoded = self._decode_misses(misses)
+                vals[miss] = decoded
+                if self.cache.capacity_bytes > 0:
+                    for i, val in zip(misses.tolist(), decoded):
+                        self.cache.put(i, val)
+            out = vals[rank[inverse.ravel()]].tolist()
+        self.stats.record_multiget(arr.size, time.perf_counter() - t0)
         return out
 
     def scan(self, lo: int, hi: int) -> list[bytes]:
@@ -235,10 +258,38 @@ class CompressedStringStore:
         return snap
 
     # --------------------------------------------------------------- internals
-    def _decode_misses(self, misses: list[int], results: dict[int, bytes]) -> None:
-        token_lists = [np.asarray(self._string_tokens(i), dtype=np.int32)
-                       for i in misses]
-        counts = np.asarray([t.size for t in token_lists], dtype=np.int64)
+    def _decode_misses(self, misses: np.ndarray) -> np.ndarray:
+        """Decode the missed ids (unique, in first-seen order) into an object
+        array of bytes: every sealed one in one launch from the device
+        mirror (per ``_DECODE_MAX_ROWS`` ids), every tail one in a second
+        launch with host tokens.
+
+        The stats keep the reference's accounting, which launched a padded
+        ``(batch_size, cap)`` batch per chunk of ``batch_size`` misses of
+        each length bucket: ``batches``, ``padded_rows`` and ``jit_shapes``
+        count those chunks, computed from the misses' token counts, and so
+        equal the reference's after the same multigets. The port's own
+        launches (one or two a call) are what ``decode_compact.launches``,
+        ``repro_kernel_decode_batches_total`` and the ``kernel.decode_batch``
+        spans count.
+        """
+        t0 = time.perf_counter()
+        sealed = self.resident.n_strings
+        in_tail = misses >= sealed
+        head = misses[~in_tail]
+        tail_local = misses[in_tail] - sealed
+        tail_lists = self._tail_token_lists(tail_local) if tail_local.size else []
+        counts = np.empty(misses.size, dtype=np.int64)
+        counts[~in_tail] = self.resident.token_counts(head)
+        counts[in_tail] = np.fromiter(map(len, tail_lists), dtype=np.int64,
+                                      count=len(tail_lists))
+        decoded = np.empty(misses.size, dtype=object)
+        if head.size:
+            tokens, starts = self.resident.on_device()
+            decoded[~in_tail] = self._device.decode_ids(
+                tokens, starts, head, self.resident.raw_lens[head])
+        if tail_lists:
+            decoded[in_tail] = self._device.multiget_decode(tail_lists)
         if int(counts.max()) > int(self.bucket_caps[-1]):
             # a string longer than every bucket grows a new top bucket instead
             # of indexing past the table; growth is geometric (at least 2x the
@@ -246,21 +297,10 @@ class CompressedStringStore:
             self.bucket_caps = np.append(
                 self.bucket_caps,
                 max(_ceil8(int(counts.max())), 2 * int(self.bucket_caps[-1])))
-        buckets = np.searchsorted(self.bucket_caps, counts, side="left")
-        for b in np.unique(buckets):
-            cap = int(self.bucket_caps[int(b)])
-            members = np.flatnonzero(buckets == b)
-            for c0 in range(0, len(members), self.batch_size):
-                chunk = members[c0 : c0 + self.batch_size]
-                t0 = time.perf_counter()
-                decoded = self._device.multiget_decode(
-                    [token_lists[k] for k in chunk], pad_tokens=cap,
-                    pad_batch=self.batch_size)
-                dt = time.perf_counter() - t0
-                for k, val in zip(chunk, decoded):
-                    results[misses[k]] = val
-                self.stats.record_decode_batch(
-                    (self.batch_size, cap), len(chunk),
-                    sum(len(v) for v in decoded), dt)
-        for i in misses:
-            self.cache.put(i, results[i])
+        per_bucket = np.bincount(np.searchsorted(self.bucket_caps, counts,
+                                                 side="left"))
+        chunks = {(self.batch_size, int(self.bucket_caps[b])): -(-int(k) // self.batch_size)
+                  for b, k in enumerate(per_bucket) if k}
+        self.stats.record_decode(chunks, misses.size, sum(map(len, decoded)),
+                                 time.perf_counter() - t0)
+        return decoded

@@ -235,8 +235,8 @@ def test_decode_wrapper_checks_inputs(dicts):
         with pytest.raises(ValueError):
             onpair_decode.decode_compact(*bad)
     with pytest.raises(ValueError):  # ids past the dictionary never launch
-        ops.OnPairDevice(dicts[2], CPU).decode_batch(
-            np.array([[dd.num_entries]], np.int32), np.array([1], np.int32))
+        ops.OnPairDevice(dicts[2], CPU).multiget_decode(
+            [np.array([dd.num_entries], np.int32)])
 
 
 def test_pack_helpers_match_reference():
