@@ -37,8 +37,9 @@ SIGNATURES = {
     # out_start, mat16, lens, n_entries, out, out_size, out_len, M, stream
     "onpair_decode_rows": [_P, _I, _L, _P, _L, _P, _P, _I, _P, _P, _P, _I, _P,
                            _L, _P, _I, _P],
-    # tokens, mat16, lens, out, out_len, tile_sums, T, n, max_out, stream
-    "onpair_decode_stream": [_P] * 6 + [_I, _I, _L, _P],
+    # tokens, tok_bytes, mat16, lens, out, out_len, scratch, scratch_words,
+    # T, n, max_out, stream
+    "onpair_decode_stream": [_P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _L, _P],
     # data, lens, s_lo, s_hi, s_len, s_tok, p_lo, p_hi, p_len, p_bucket,
     # bucket_start, bucket_size, suf_lo, suf_hi, suf_len, suf_tok, tokens,
     # n_tokens, B, Lp, max_tokens, s_size, p_size, s_probe_max, p_probe_max,

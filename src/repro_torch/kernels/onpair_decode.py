@@ -28,9 +28,11 @@ _NO_LIMIT = 2**31 - 1
 
 
 def _check_tables(name: str, mat16: torch.Tensor, lens: torch.Tensor,
-                  dev: torch.device) -> None:
+                  dev: torch.device, lens_dtypes=(torch.int32,)) -> None:
     _build.expect("mat16", mat16, torch.uint8, 2, dev)
-    _build.expect("lens", lens, torch.int32, 1, dev)
+    if lens.dtype not in lens_dtypes:
+        raise ValueError(f"{name}: lens must be one of {lens_dtypes}, got {lens.dtype}")
+    _build.expect("lens", lens, lens.dtype, 1, dev)
     if mat16.shape[1] != 16 or lens.shape[0] != mat16.shape[0]:
         raise ValueError(f"{name}: shapes disagree: mat16 {tuple(mat16.shape)}, "
                          f"lens {tuple(lens.shape)}")
@@ -146,25 +148,45 @@ def decode_compact(tokens: torch.Tensor, n_tokens: torch.Tensor,
 #: before each path)
 decode_compact.launches = 0
 
-#: tokens per block of the stream kernel (``kTile`` in its CUDA source)
-_STREAM_TILE = 1024
+#: tokens per tile of the stream kernel (``kTile`` in its CUDA source)
+_STREAM_TILE = 2048
+#: the stream kernel's zeroed scratch (a ticket, a done counter, a status
+#: word per tile) per (device, stream): each call leaves it zeroed, so calls
+#: on one stream share it, and calls on two streams never do
+_stream_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _stream_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        have = 0 if buf is None else buf.numel()
+        buf = torch.zeros(max(words, 2 * have, 256), dtype=torch.int64, device=dev)
+        _stream_scratch[key] = buf
+    return buf
 
 
 def decode_tokens(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
                   lens: torch.Tensor, max_out: int):
     """Decode the token stream ``tokens[:n_tokens]`` into one byte stream.
 
-    tokens int32[T] (ids < N), ``n_tokens`` clamped to [0, T], mat16
-    uint8[N, 16], lens int32[N] (each <= 16), ``max_out >= 0`` -> (out
+    tokens uint16[T] or int32[T] (ids < N), ``n_tokens`` clamped to [0, T],
+    mat16 uint8[N, 16], lens uint8[N] (each <= 16: a table small enough to
+    stay in L1; the plain version also takes int32), ``max_out >= 0`` -> (out
     uint8[max_out], out_len int64 scalar tensor). ``out_len`` is the full
     decoded length; ``out`` holds the decoded bytes before ``max_out`` and
-    zeros past ``out_len``. All inputs lie on one device: CUDA launches the
-    kernel (``csrc/onpair_decode_stream.cu``), the CPU runs the plain
-    version. ``T == 0`` or ``n_tokens <= 0`` returns zeros without a launch.
+    zeros past ``out_len``. ``tokens`` may start anywhere in its buffer (a
+    slice of the store's mirror does). All inputs lie on one device: CUDA
+    launches the kernel (``csrc/onpair_decode_stream.cu``, one launch), the
+    CPU runs the plain version. ``T == 0`` or ``n_tokens <= 0`` returns
+    zeros without a launch.
     """
     dev = tokens.device
-    _build.expect("tokens", tokens, torch.int32, 1, dev)
-    _check_tables("decode_tokens", mat16, lens, dev)
+    if tokens.dtype not in (torch.uint16, torch.int32) or tokens.dim() != 1:
+        raise ValueError("tokens must be uint16 or int32 with 1 dim, got "
+                         f"{tokens.dtype} with shape {tuple(tokens.shape)}")
+    _build.expect("tokens", tokens, tokens.dtype, 1, dev)
+    _check_tables("decode_tokens", mat16, lens, dev, (torch.int32, torch.uint8))
     T = tokens.shape[0]
     n_tokens, max_out = int(n_tokens), int(max_out)
     if max_out < 0 or T >= 2**31:
@@ -172,24 +194,26 @@ def decode_tokens(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
                          f"T={T} below 2**31")
     if dev.type == "cpu":
         return ref.decode_tokens_ref(tokens, n_tokens, mat16, lens, max_out)
+    if lens.dtype != torch.uint8:
+        raise ValueError(f"decode_tokens: the kernel reads uint8 lens, got {lens.dtype}")
     n = min(n_tokens, T)
     if n <= 0:
         return (torch.zeros(max_out, dtype=torch.uint8, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev))
     out = torch.empty(max_out, dtype=torch.uint8, device=dev)
     out_len = torch.empty((), dtype=torch.int64, device=dev)
-    tile_sums = torch.empty(-(-n // _STREAM_TILE), dtype=torch.int64, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch(dev, stream, (n + 16) // _STREAM_TILE + 3)
         rc = lib.onpair_decode_stream(
-            tokens.data_ptr(), mat16.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), out_len.data_ptr(), tile_sums.data_ptr(),
-            T, n, max_out, stream)
+            tokens.data_ptr(), tokens.element_size(), mat16.data_ptr(),
+            lens.data_ptr(), out.data_ptr(), out_len.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), T, n, max_out, stream)
     _build.check(rc, "decode_tokens")
     decode_tokens.launches += 1
     return out, out_len
 
 
-#: wrapper calls that launched the kernel (its three passes count as one)
+#: wrapper calls that launched the kernel
 decode_tokens.launches = 0

@@ -14,7 +14,7 @@ import torch
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, onpair_decode, onpair_encode
-from repro_torch.kernels.ref import DeviceDict
+from repro_torch.kernels.ref import DeviceDict, token_ids
 from repro_torch.obs import REGISTRY, TRACER, Counter
 
 #: device decode invocations by path — the CUDA kernel, or the plain
@@ -118,6 +118,9 @@ class OnPairDevice:
         #: the entry lengths on the host, which size a decode's output
         #: before its launch
         self.host_lens = self.dd.lens.cpu().numpy().astype(np.int64)
+        #: the entry lengths as uint8 (OnPair16's are at most 16) for the
+        #: stream kernel: 64 KiB, which its gathers find in L1
+        self.lens8 = self.dd.lens.to(torch.uint8)
         # every launch uses a (<= encode_pad_batch, cap + 16) shape with cap
         # drawn from encode_len_caps, as in the reference's bucketed encode
         self.encode_len_caps: list[int] = list(_ENCODE_LEN_BUCKETS)
@@ -216,35 +219,76 @@ class OnPairDevice:
         in one call of the stream kernel."""
         return self.decode_run(tokens, [np.asarray(tokens).size])[0]
 
+    def upload_tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        """Host token ids on this device, after checking that they lie in
+        the dictionary: uint16 as they are (2 B a token, the payload's own
+        layout), any other integer type as int32."""
+        tokens = np.asarray(tokens)
+        if tokens.dtype != np.uint16:
+            tokens = tokens.astype(np.int32)
+        if tokens.size and (int(tokens.min()) < 0
+                            or int(tokens.max()) >= self.dd.num_entries):
+            raise ValueError(f"token ids must lie in [0, {self.dd.num_entries})")
+        if not tokens.flags.writeable:  # torch takes only writable arrays
+            tokens = tokens.copy()
+        return torch.from_numpy(np.ascontiguousarray(tokens)).to(self.device)
+
     def decode_run(self, tokens: np.ndarray, counts) -> list[bytes]:
         """Decode the token streams of consecutive strings, concatenated in
-        ``tokens`` (string k holds ``counts[k]`` tokens), in one call of the
+        host ``tokens`` (string k holds ``counts[k]`` tokens), in one call
+        of the stream kernel, and split the bytes per string.
+
+        For callers that do not know the strings' decoded lengths: the
+        tokens go up as they are (uint16 stays uint16), and the cumsum of
+        their lengths, which gives the exact output size and the string
+        boundaries, runs on the device; only the boundaries come back before
+        the launch.
+        """
+        counts = np.asarray(counts, dtype=np.int64)
+        tok = self.upload_tokens(tokens)
+        if not tok.numel():
+            return [b""] * counts.size
+        byte_cum = torch.zeros(tok.numel() + 1, dtype=torch.int64, device=self.device)
+        torch.cumsum(self.dd.lens[token_ids(tok)], 0, dtype=torch.int64,
+                     out=byte_cum[1:])
+        at = np.concatenate(([0], np.cumsum(counts)))
+        bounds = byte_cum[torch.from_numpy(at).to(self.device)].cpu().numpy()
+        return self.decode_span(tok[: int(at[-1])], np.diff(bounds))
+
+    def decode_span(self, tokens: torch.Tensor, raw_lens) -> list[bytes]:
+        """Decode consecutive strings whose tokens lie back to back in
+        ``tokens`` (uint16 or int32, on this device, ids already checked:
+        the store's mirror checks its tokens when it takes them) and whose
+        decoded lengths ``raw_lens`` the host knows, in one call of the
         stream kernel, and split the bytes per string.
 
-        The cumsum of the token lengths, which gives the exact output size
-        and the string boundaries, runs on the tokens' device, and only the
-        boundaries come back. On CUDA the bytes come down into pinned host
-        memory, which torch's host allocator keeps for the next call: after
-        a process's first call of a size, the copy touches no fresh pages.
+        The output's size and the string boundaries are one numpy cumsum, so
+        nothing is read from the device before the launch. The kernel's
+        ``out_len`` comes down with the bytes, on CUDA into pinned host
+        memory that torch's host allocator keeps for the next call; a total
+        that disagrees with ``raw_lens`` raises ValueError.
         """
-        tokens = np.ascontiguousarray(tokens, dtype=np.int32)
-        counts = np.asarray(counts, dtype=np.int64)
-        if not tokens.size:
-            return [b""] * counts.size
-        if tokens.min() < 0 or tokens.max() >= self.dd.num_entries:
-            raise ValueError(f"token ids must lie in [0, {self.dd.num_entries})")
-        tok = torch.from_numpy(tokens).to(self.device)
-        byte_cum = torch.zeros(tokens.size + 1, dtype=torch.int64, device=self.device)
-        torch.cumsum(self.dd.lens[tok], 0, dtype=torch.int64, out=byte_cum[1:])
-        at = np.concatenate(([0], np.cumsum(counts), [tokens.size]))
-        bounds = byte_cum[torch.from_numpy(at).to(self.device)].cpu().numpy()
-        out, _ = onpair_decode.decode_tokens(
-            tok, tokens.size, self.dd.mat16, self.dd.lens, int(bounds[-1]))
+        raw_lens = np.asarray(raw_lens, dtype=np.int64)
+        bounds = np.zeros(raw_lens.size + 1, dtype=np.int64)
+        np.cumsum(raw_lens, out=bounds[1:])
+        size = int(bounds[-1])
+        if not tokens.numel() and not size:
+            return [b""] * raw_lens.size
+        out, out_len = onpair_decode.decode_tokens(
+            tokens, tokens.numel(), self.dd.mat16, self.lens8, size)
         if out.is_cuda:
-            out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True).copy_(out)
+            total = torch.empty(1, dtype=torch.int64, pin_memory=True)
+            total.copy_(out_len.view(1), non_blocking=True)
+            host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(out.device).synchronize()  # both copies landed
+            out, out_len = host, total
+        if int(out_len) != size:
+            raise ValueError(f"the tokens decode to {int(out_len)} bytes, the "
+                             f"strings' lengths add up to {size}")
         decoded = out.numpy().tobytes()
         b = bounds.tolist()
-        return [decoded[b[k] : b[k + 1]] for k in range(counts.size)]
+        return [decoded[lo:hi] for lo, hi in zip(b, b[1:])]
 
     def multiget_decode(self, token_lists: list[np.ndarray]) -> list[bytes]:
         """Random-access decode of ragged token streams, one string each, in

@@ -188,7 +188,7 @@ def decode_batch_ref(tokens: torch.Tensor, n_tokens: torch.Tensor,
 decode_batch_ref.calls = 0
 
 
-def _token_ids(tokens: torch.Tensor) -> torch.Tensor:
+def token_ids(tokens: torch.Tensor) -> torch.Tensor:
     """uint16 or int32 token ids as int64 (uint16 through an int16 view, so
     no uint16 arithmetic is needed on any device)."""
     if tokens.dtype == torch.uint16:
@@ -232,7 +232,7 @@ def decode_rows_ref(tokens: torch.Tensor, starts: torch.Tensor,
     idx = s[row] + torch.arange(row.numel(), device=dev) - first[row]
     T = tokens.shape[0]
     valid = (idx >= 0) & (idx < T)
-    tok = _token_ids(tokens)[idx.clamp(0, max(T - 1, 0))] if T else idx
+    tok = token_ids(tokens)[idx.clamp(0, max(T - 1, 0))] if T else idx
     valid &= (tok >= 0) & (tok < N)
     tok = torch.where(valid, tok, 0)
     tl = torch.where(valid, lens.to(torch.int64)[tok].clamp(0, 16), 0) if N else \
@@ -259,9 +259,9 @@ def decode_tokens_ref(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
     """Plain version of ``decode_tokens``: one token stream -> (out
     uint8[max_out], out_len int64 scalar tensor).
 
-    The first ``n_tokens`` (clamped to [0, T]) tokens of ``tokens`` int32[T]
-    decode to the first ``lens[tok]`` bytes of each one's ``mat16`` row,
-    concatenated; ``out_len`` is their total length and ``out`` holds the
+    The first ``n_tokens`` (clamped to [0, T]) tokens of ``tokens``
+    (uint16[T] or int32[T]) decode to the first ``lens[tok]`` bytes of each
+    one's ``mat16`` row, concatenated; ``out_len`` is their total length and ``out`` holds the
     bytes before ``max_out``, zero past ``out_len``. The counterpart of the
     reference's ``decode_ref``: a gather of rows and lengths, an exclusive
     prefix sum, and one masked scatter.
@@ -270,7 +270,7 @@ def decode_tokens_ref(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
     T = tokens.shape[0]
     dev = tokens.device
     n = min(max(int(n_tokens), 0), T)
-    tok = tokens[:n].to(torch.int64)
+    tok = token_ids(tokens[:n])
     tl = lens.to(torch.int64)[tok]
     starts = tl.cumsum(0) - tl
     j = torch.arange(16, device=dev)

@@ -11,7 +11,8 @@ The writable store layers that lifecycle over
 * once the tail reaches ``strings_per_segment`` strings it is sealed into a
   new immutable segment, off-thread by default, and mirrored on the
   device; ``multiget`` (the decode kernel) and ``scan`` (the stream
-  kernel) answer across sealed segments and the tail the whole time;
+  kernel, over the mirror and the tail's own tokens) answer across sealed
+  segments and the tail the whole time;
 * a :class:`~repro_torch.store.drift.DriftMonitor` watches the achieved
   ratio of appended data against the train-time ratio; ``compact()``
   re-trains a dictionary on the live data (with the store's
@@ -129,10 +130,9 @@ class MutableStringStore(CompressedStringStore):
     def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
         if lo >= hi:
             return []
-        parts = self._tail[lo:hi]
-        counts = np.asarray([len(p) // 2 for p in parts], dtype=np.int64)
-        return self._device.decode_run(
-            np.frombuffer(b"".join(parts), dtype="<u2"), counts)
+        tokens = np.frombuffer(bytearray().join(self._tail[lo:hi]), dtype="<u2")
+        return self._device.decode_span(self._device.upload_tokens(tokens),
+                                        self._tail_raw[lo:hi])
 
     @property
     def n_strings(self) -> int:

@@ -2,17 +2,15 @@
 
 A :class:`SegmentedCorpus` splits one :class:`~repro_torch.core.api.CompressedCorpus`
 into fixed-size segments of consecutive strings. Each segment carries a
-zero-copy payload view plus *segment-local* byte offsets; a range of global
-ids finds its segments by bisecting the segments' base ids: the writable
+zero-copy payload view plus *segment-local* byte offsets; the writable
 store seals appended tails into segments of their own, so segments may
-differ in size. (Point lookups read the device mirror,
+differ in size. (Point lookups and scans read the device mirror,
 :mod:`repro_torch.store.resident`.)
 """
 
 from __future__ import annotations
 
-import bisect
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -55,10 +53,6 @@ class SegmentedCorpus:
     strings_per_segment: int
     n_strings: int
     raw_bytes: int
-    _base_ids: list[int] = field(default_factory=list, repr=False)
-
-    def __post_init__(self) -> None:
-        self._base_ids = [s.base_id for s in self.segments]
 
     @classmethod
     def from_corpus(cls, corpus: CompressedCorpus,
@@ -89,21 +83,9 @@ class SegmentedCorpus:
                       payload=np.asarray(payload, dtype=np.uint8),
                       offsets=np.asarray(offsets, dtype=np.int64))
         self.segments.append(seg)
-        self._base_ids.append(seg.base_id)
         self.n_strings += seg.n_strings
         self.raw_bytes += int(raw_bytes)
         return seg
-
-    def overlapping(self, lo: int, hi: int):
-        """Segments covering any id in [lo, hi), found by bisect: a narrow
-        scan touches only the segments it covers."""
-        if lo >= hi:
-            return
-        k = max(0, bisect.bisect_right(self._base_ids, lo) - 1)
-        for seg in self.segments[k:]:
-            if seg.base_id >= hi:
-                break
-            yield seg
 
     def token_counts(self) -> np.ndarray:
         """Tokens per string over the whole corpus, in global id order."""

@@ -12,10 +12,12 @@ in one launch of the per-string decode kernel
 bringing down only the decoded bytes. Misses in a writable store's unsealed
 tail take a second launch with their tokens sent from the host.
 
-Range path (``scan``): each segment's covered slice is one token stream,
-decoded by the stream kernel
+Range path (``scan``): the sealed strings of a range are one slice of the
+device mirror's token buffer, decoded by one call of the stream kernel
 (:func:`repro_torch.kernels.onpair_decode.decode_tokens` via
-``OnPairDevice.decode_run``) and split on per-string byte boundaries.
+``OnPairDevice.decode_span``), with no token upload; the mirror's host copy
+of the decoded lengths sizes the output and splits it per string. A
+writable store's tail takes a second call.
 """
 
 from __future__ import annotations
@@ -42,6 +44,11 @@ from repro_torch.store.stats import StoreStats
 #: quantiles of the corpus token-count distribution that seed the bucket
 #: capacities (the last one is stretched to cover the true maximum).
 _BUCKET_QUANTILES = (0.5, 0.9, 0.99, 1.0)
+#: the most mirror tokens one stream call of a scan decodes (a longer string
+#: takes a call of its own): bounds a call's output (16 B a token at most, so
+#: 1 GiB), its pinned host copy and the kernel's 2**31-token limit, and keeps
+#: a store of fewer tokens at one call a range
+_SCAN_MAX_TOKENS = 2**26
 
 
 def _ceil8(x: int) -> int:
@@ -219,10 +226,10 @@ class CompressedStringStore:
         return out
 
     def scan(self, lo: int, hi: int) -> list[bytes]:
-        """Decode the contiguous id range [lo, hi): each segment's covered
-        slice is one token stream, decoded by one call of the stream kernel
-        and split on per-string byte boundaries. Ranges may extend past the
-        sealed segments into an unsealed tail."""
+        """Decode the contiguous id range [lo, hi): its sealed strings in one
+        call of the stream kernel over the device mirror (one per
+        ``_SCAN_MAX_TOKENS`` tokens), split on per-string byte boundaries. Ranges may extend past the sealed
+        segments into an unsealed tail, which takes one more call."""
         n = self.n_strings
         if not (0 <= lo <= hi <= n):
             raise IndexError(f"scan range [{lo}, {hi}) not within [0, {n}]")
@@ -233,15 +240,21 @@ class CompressedStringStore:
 
     def _scan_locked(self, lo: int, hi: int) -> list[bytes]:
         out: list[bytes] = []
-        for seg in self.segments.overlapping(lo, hi):
-            s_lo = max(lo, seg.base_id)
-            s_hi = min(hi, seg.base_id + seg.n_strings)
-            if s_lo >= s_hi:
-                continue
-            l0, l1 = s_lo - seg.base_id, s_hi - seg.base_id
-            out.extend(self._device.decode_run(seg.tokens(l0, l1),
-                                               seg.token_counts()[l0:l1]))
-        sealed = self.segments.n_strings
+        sealed = self.resident.n_strings
+        s_hi = min(hi, sealed)
+        if lo < s_hi:
+            starts = self.resident.host_starts
+            tokens, _ = self.resident.on_device()
+            a = lo
+            while a < s_hi:
+                # the strings from a whose tokens fit in one call, at least one
+                b = int(np.searchsorted(starts, starts[a] + _SCAN_MAX_TOKENS,
+                                        "right")) - 1
+                b = min(max(b, a + 1), s_hi)
+                out.extend(self._device.decode_span(
+                    tokens[int(starts[a]) : int(starts[b])],
+                    self.resident.raw_lens[a:b]))
+                a = b
         if hi > sealed:
             out.extend(self._tail_scan(max(lo, sealed) - sealed, hi - sealed))
         return out
