@@ -24,7 +24,17 @@ after:
    sealed/tail boundary (the decode kernel once per call for sealed ids and
    once more when a call touches the tail, and the stream kernel once per
    scan for sealed strings and once more for the tail), and one
-   ``compact()`` (all three).
+   ``compact()`` (all three);
+5. persistence and reverse lookup: the read store saved and opened again
+   (here and in a fresh process; the device mirror rebuilt from the
+   corpus), every string read back; ``locate_batch`` of sampled strings and
+   absent ones (the encode kernel for the queries, the stream kernel for
+   the first call's index build), saved again with ``index.npz`` and
+   reopened without a rebuild; ``scan_prefix`` against a sorted filter of
+   the source (one decode launch per probed string); and a writable store
+   with an unsealed tail saved, opened (here and in a fresh process),
+   appended to and ``compact(dir_path=)``-ed into its next versioned
+   generation.
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
@@ -51,6 +61,7 @@ exits non-zero and prints no result. Imports nothing of JAX and nothing of
 
 from __future__ import annotations
 
+import bisect
 import cProfile
 import hashlib
 import json
@@ -59,6 +70,7 @@ import pstats
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -74,6 +86,12 @@ STRINGS_PER_SEGMENT = 4096
 PARITY_STRINGS = 4096
 ENCODE_WINDOW = 1 << 16  # strings appended under the profiler
 MULTIGET_WINDOW = 200  # 1024-id batches read under the profiler
+LOCATE_HITS = 100_000  # sampled source strings located on the opened store
+LOCATE_MISSES = 10_000  # absent strings (a source string and one more byte)
+PREFIXES = 20  # scan_prefix prefixes of 1-8 bytes, three paginated to the end
+PREFIX_LIMIT = 100
+WRITABLE_STRINGS = 1 << 18  # the persist phase's writable store, before extend
+WRITABLE_EXTEND = 5_000  # strings appended before the save and after the open
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
@@ -191,6 +209,14 @@ def check_equal(name: str, case: str, got: torch.Tensor, want: torch.Tensor) -> 
         raise AssertionError(f"{name} {case}: kernel differs from the plain "
                              f"version ({tuple(got.shape)} vs {tuple(want.shape)}, "
                              f"max abs err {diff})")
+
+
+def digest(vals: list[bytes]) -> dict:
+    """Count, sha256 of the concatenation and sha256 of the lengths of a
+    list of strings: equal digests mean equal lists."""
+    lens = np.fromiter(map(len, vals), np.int64, len(vals))
+    return {"n": len(vals), "sha256": hashlib.sha256(b"".join(vals)).hexdigest(),
+            "lens_sha256": hashlib.sha256(lens.tobytes()).hexdigest()}
 
 
 def check_strings(path: str, got: list[bytes], want: list[bytes]) -> None:
@@ -498,6 +524,313 @@ def main() -> int:
                              f"expected {expect_stream}")
     del snap
 
+    # ------------------------------------------------------------ 4.5 persist
+    # save -> open of the read store (here and in a fresh process), locate
+    # and scan_prefix on it, save -> open with its index.npz, and save ->
+    # open -> extend -> compact(dir_path=) of a writable store with an
+    # unsealed tail; every file under a temporary directory
+    counts.start()
+    payload_sha = hashlib.sha256(corpus.payload).hexdigest()[:16]
+
+    def serve_all(st, want: list[bytes], path: str) -> int:
+        """Every id of ``st`` through shuffled 1,024-id multigets and
+        scan(0, n), each == its source string. Returns the multiget calls
+        that touched the tail (a second decode launch each)."""
+        n = st.n_strings
+        perm = np.random.default_rng(SEED).permutation(n)
+        tail_calls = 0
+        for i in range(0, n, MULTIGET_IDS):
+            ids = perm[i : i + MULTIGET_IDS]
+            check_strings(f"{path} multiget", st.multiget(ids), [want[j] for j in ids])
+            tail_calls += bool((ids >= st.n_sealed).any())
+        check_strings(f"{path} scan(0, n)", st.scan(0, n), want)
+        return tail_calls
+
+    def fresh_open(path: str, kind: str, want: list[bytes], payload: str) -> dict:
+        """Open the store saved at ``path`` in a fresh process, which reads
+        every string as ``serve_all`` does; its digests must be the source's
+        and its payload's sha256 prefix ``payload``."""
+        probe = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--open-probe", path, kind],
+                               capture_output=True, text=True, timeout=600)
+        if probe.returncode != 0:
+            raise RuntimeError(f"open of the {kind} store in a fresh process failed:\n"
+                               f"{probe.stderr[-4000:]}")
+        got = json.loads(probe.stdout.strip().splitlines()[-1])
+        expect = digest(want)
+        for key in ("multiget", "scan"):
+            if got[key] != expect:
+                raise AssertionError(f"{kind} store opened in a fresh process: its "
+                                     f"{key} differs from the source strings")
+        if got["payload_sha256"] != payload:
+            raise AssertionError(f"{kind} store opened in a fresh process: payload "
+                                 f"sha256 {got['payload_sha256']} != {payload}")
+        return got
+
+    expect_encode = 0  # encode launches of the phase, recomputed from its inputs
+
+    def encode_calls(batch: list[bytes]) -> int:
+        return len(encode_launch_shapes(batch, ops._ENCODE_LEN_BUCKETS, pad_batch,
+                                        chunk_bytes))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the read store of 4.1: save, open here, open in a fresh process
+        rdir = os.path.join(tmp, "read")
+        t0 = time.perf_counter()
+        store.save(rdir)
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opened = CompressedStringStore.open(rdir, device=dev)
+        torch.cuda.synchronize()
+        open_s = time.perf_counter() - t0
+        opened_sha = hashlib.sha256(opened.corpus.payload).hexdigest()[:16]
+        if opened_sha != payload_sha:
+            raise AssertionError(f"opened store: payload sha256 {opened_sha} != "
+                                 f"the build's {payload_sha}")
+        serve_all(opened, strings, "opened read store")
+        rfresh = fresh_open(rdir, "read", strings, payload_sha)
+
+        # locate: hits are sampled source strings, misses a sampled string
+        # and one more byte, absent from the corpus; the first call (misses,
+        # so it probes every segment) builds every segment's index
+        first_id: dict[bytes, int] = {}
+        for i, s in enumerate(strings):
+            first_id.setdefault(s, i)
+        rng = np.random.default_rng(SEED + 4)
+        hit_q = [strings[i] for i in rng.integers(0, n_all, LOCATE_HITS)]
+        want_hits = [first_id[s] for s in hit_q]
+        miss_q = []
+        for i in rng.integers(0, n_all, 2 * LOCATE_MISSES):
+            s = strings[i] + bytes([int(i) % 251])
+            if s not in first_id:
+                miss_q.append(s)
+            if len(miss_q) == LOCATE_MISSES:
+                break
+
+        def locate_all(st) -> tuple[float, float, float]:
+            """(seconds of the first call, of the hits, of the other
+            misses); every answer checked."""
+            t0 = time.perf_counter()
+            misses = st.locate_batch(miss_q[:MULTIGET_IDS])
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            hits = [r for i in range(0, LOCATE_HITS, MULTIGET_IDS)
+                    for r in st.locate_batch(hit_q[i : i + MULTIGET_IDS])]
+            t_hits = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            misses += [r for i in range(MULTIGET_IDS, LOCATE_MISSES, MULTIGET_IDS)
+                       for r in st.locate_batch(miss_q[i : i + MULTIGET_IDS])]
+            t_misses = time.perf_counter() - t0
+            if hits != want_hits:
+                bad = next(k for k, (h, w) in enumerate(zip(hits, want_hits)) if h != w)
+                raise AssertionError(f"locate: hit {bad} answered {hits[bad]}, the "
+                                     f"lowest id of that string is {want_hits[bad]}")
+            if any(m is not None for m in misses):
+                raise AssertionError("locate: an absent string was found")
+            return t_first, t_hits, t_misses
+
+        loc_batches = [miss_q[i : i + MULTIGET_IDS] for i in range(0, LOCATE_MISSES,
+                                                                   MULTIGET_IDS)]
+        loc_batches += [hit_q[i : i + MULTIGET_IDS] for i in range(0, LOCATE_HITS,
+                                                                  MULTIGET_IDS)]
+        before = onpair_decode.decode_tokens.launches
+        loc1 = locate_all(opened)
+        build_launches = onpair_decode.decode_tokens.launches - before
+        if len(opened._seg_indexes) != n_seg or build_launches != n_seg:
+            raise AssertionError(f"locate built {len(opened._seg_indexes)} indexes in "
+                                 f"{build_launches} stream launches, expected {n_seg}")
+        snap_loc = opened.stats_snapshot()
+        if (snap_loc["locates"], snap_loc["locate_hits"]) != (
+                LOCATE_HITS + LOCATE_MISSES, LOCATE_HITS):
+            raise AssertionError(f"locate counters {snap_loc['locates']}, "
+                                 f"{snap_loc['locate_hits']}")
+        expect_encode += sum(map(encode_calls, loc_batches))
+
+        # save again, index.npz included; the reopened store answers the
+        # same queries from the saved indexes, with no stream launch
+        idir = os.path.join(tmp, "indexed")
+        t0 = time.perf_counter()
+        opened.save(idir)
+        save2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reopened = CompressedStringStore.open(idir, device=dev)
+        torch.cuda.synchronize()
+        open2_s = time.perf_counter() - t0
+        before = onpair_decode.decode_tokens.launches
+        loc2 = locate_all(reopened)
+        if len(reopened._seg_indexes) != n_seg or \
+                onpair_decode.decode_tokens.launches != before:
+            raise AssertionError("the store opened with index.npz rebuilt an index")
+        expect_encode += sum(map(encode_calls, loc_batches))
+        disk = {name: os.path.getsize(os.path.join(idir, name))
+                for name in sorted(os.listdir(idir))}
+        del reopened
+
+        # scan_prefix, cache off: every probed string is one decode launch
+        ordered = sorted(zip(strings, range(n_all)))
+
+        def prefix_expect(p: bytes) -> list[tuple[int, bytes]]:
+            k = bisect.bisect_left(ordered, (p,))
+            out = []
+            while k < n_all and ordered[k][0].startswith(p):
+                out.append((ordered[k][1], ordered[k][0]))
+                k += 1
+            return out
+
+        long_ids = np.flatnonzero(np.fromiter(map(len, strings), np.int64, n_all) >= 8)
+        prefixes = [strings[int(i)][: 1 + k % 8] for k, i in enumerate(
+            np.random.default_rng(SEED + 5).choice(long_ids, PREFIXES, replace=False))]
+        prefix_calls = []  # (launches, seconds) per scan_prefix call
+
+        def prefix_call(p: bytes, after=None) -> list:
+            before = onpair_decode.decode_compact.launches
+            t0 = time.perf_counter()
+            got = opened.scan_prefix(p, limit=PREFIX_LIMIT, after=after)
+            prefix_calls.append((onpair_decode.decode_compact.launches - before,
+                                 time.perf_counter() - t0))
+            return got
+
+        expected = {p: prefix_expect(p) for p in prefixes}
+        for p in prefixes:
+            if prefix_call(p) != expected[p][:PREFIX_LIMIT]:
+                raise AssertionError(f"scan_prefix({p!r}) differs from a sorted "
+                                     "filter of the source strings")
+        # pages to the end for the three prefixes with the fewest matches
+        # past one page (each page probes every segment)
+        paged = sorted(prefixes, key=lambda p: (len(expected[p]) <= PREFIX_LIMIT,
+                                                len(expected[p])))[:3]
+        n_pages = 0
+        for p in paged:
+            pages, after = [], None
+            while True:
+                page = prefix_call(p, after)
+                n_pages += 1
+                if not page:
+                    break
+                pages += page
+                after = (page[-1][1], page[-1][0])
+            if pages != expected[p]:
+                raise AssertionError(f"scan_prefix({p!r}) paginated differs from a "
+                                     "sorted filter of the source strings")
+        if opened.stats.prefix_scans != len(prefix_calls):
+            raise AssertionError("scan_prefix: the prefix_scans counter is off")
+        prefix_launches = sum(n for n, _ in prefix_calls)
+        del ordered  # the opened store stays for the profiled windows (5.)
+
+        # the writable store: the first WRITABLE_STRINGS strings, an extend
+        # that leaves a tail, save -> open (here and in a fresh process) ->
+        # extend -> compact(dir_path=) -> open
+        wn, wx = WRITABLE_STRINGS, WRITABLE_EXTEND
+        wcut = int(corpus.offsets[wn])
+        w = MutableStringStore(
+            dictionary, CompressedCorpus(payload=corpus.payload[:wcut],
+                                         offsets=corpus.offsets[: wn + 1].copy(),
+                                         raw_bytes=sum(map(len, strings[:wn])),
+                                         meta=dict(corpus.meta)),
+            device=dev, config=config, strings_per_segment=STRINGS_PER_SEGMENT,
+            cache_bytes=0)
+        w.extend(strings[wn : wn + wx])
+        expect_encode += encode_calls(strings[wn : wn + wx])
+        w.seal_barrier()
+        w_sealed = w.n_sealed
+        w_sha = hashlib.sha256(w.snapshot_corpus().payload).hexdigest()[:16]
+        wdir = os.path.join(tmp, "writable")
+        t0 = time.perf_counter()
+        w.save(wdir)
+        wsave_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w2 = MutableStringStore.open(wdir, device=dev)
+        torch.cuda.synchronize()
+        wopen_s = time.perf_counter() - t0
+        if (w2.n_sealed, w2.n_strings) != (w_sealed, wn + wx) or \
+                w2.drift.snapshot() != w.drift.snapshot():
+            raise AssertionError("writable store: the open lost its tail or drift window")
+        del w
+        w_tail_calls = serve_all(w2, strings[: wn + wx], "opened writable store")
+        wfresh = fresh_open(wdir, "writable", strings[: wn + wx], w_sha)
+        ids = w2.extend(strings[wn + wx : wn + 2 * wx])
+        expect_encode += encode_calls(strings[wn + wx : wn + 2 * wx])
+        w2.seal_barrier()
+        n0 = wn + 2 * wx
+        if ids != list(range(wn + wx, n0)) or w2.n_sealed != n0 // STRINGS_PER_SEGMENT \
+                * STRINGS_PER_SEGMENT or [s.base_id for s in w2.segments.segments] != \
+                list(range(0, w2.n_sealed, STRINGS_PER_SEGMENT)):
+            raise AssertionError("writable store: appends after the open sealed off "
+                                 "the segment boundaries")
+        w2_sealed = w2.n_sealed
+        wrep = w2.compact(dir_path=wdir)
+        expect_encode += encode_calls(strings[:n0])
+        if wrep["dir"] != wdir or sorted(os.listdir(wdir)) != ["current.json", "v0001"]:
+            raise AssertionError(f"compact(dir_path=): {wrep}, {sorted(os.listdir(wdir))}")
+        del w2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w3 = MutableStringStore.open(wdir, device=dev)
+        torch.cuda.synchronize()
+        wopen2_s = time.perf_counter() - t0
+        if w3.version_id != 1:
+            raise AssertionError("the compacted generation did not open as v0001")
+        w_tail_calls += serve_all(w3, strings[:n0], "compacted writable store")
+        del w3
+
+    persist = counts.end("persist", ["encode_batch", "decode_compact", "decode_tokens"])
+    served = n_all + (wn + wx) + n0
+    expect_pd = sum(-(-n // MULTIGET_IDS) for n in (n_all, wn + wx, n0)) + \
+        w_tail_calls + prefix_launches
+    # scans: the opened store's (1), the index build (a launch a segment),
+    # the opened writable store's (sealed and tail), compact()'s chunks, the
+    # compacted store's
+    expect_ps = stream_calls(0, n_all, n_all) + n_seg + stream_calls(
+        0, wn + wx, w_sealed) + sum(
+        stream_calls(lo, min(lo + STRINGS_PER_SEGMENT, n0), w2_sealed)
+        for lo in range(0, n0, STRINGS_PER_SEGMENT)) + stream_calls(0, n0, n0)
+    if (persist["decode_compact"], persist["decode_tokens"], persist["encode_batch"]) \
+            != (expect_pd, expect_ps, expect_encode):
+        raise AssertionError(
+            f"persist: launches {persist}, expected decode_compact {expect_pd}, "
+            f"decode_tokens {expect_ps}, encode_batch {expect_encode}")
+    pf_n = np.asarray([n for n, _ in prefix_calls])
+    pf_ms = np.asarray([t for _, t in prefix_calls]) * 1e3
+    first_n, first_ms = pf_n[:PREFIXES], pf_ms[:PREFIXES]
+    matches = [len(expected[p]) for p in paged]
+    log("persist", f"[{card}] read store ({n_all} strings, {n_seg} segments): save "
+        f"{save_s:.3f} s, open {open_s:.3f} s in this process; open in a fresh process "
+        f"{rfresh['open_s']:.3f} s (after {rfresh['init_s']:.3f} s of CUDA start and "
+        f"kernel load); every id by multiget and scan(0, n) == the source in both; "
+        f"payload sha256 {payload_sha} (== the build's)")
+    log("persist", f"[{card}] index build on the first locate call: {loc1[0]:.3f} s "
+        f"({build_launches} stream launches for {n_seg} segments, 1,024 absent "
+        "queries)")
+    log("persist", f"[{card}] locate in calls of {MULTIGET_IDS}: {LOCATE_HITS} hits "
+        f"{LOCATE_HITS / loc1[1]:.1f} queries/s, {LOCATE_MISSES - MULTIGET_IDS} "
+        f"misses {(LOCATE_MISSES - MULTIGET_IDS) / loc1[2]:.1f} queries/s; opened "
+        f"again with index.npz (0 stream launches): first call {loc2[0]:.3f} s, hits "
+        f"{LOCATE_HITS / loc2[1]:.1f} queries/s, misses "
+        f"{(LOCATE_MISSES - MULTIGET_IDS) / loc2[2]:.1f} queries/s; every hit the "
+        "lowest id of its string, every miss None")
+    log("persist", f"[{card}] scan_prefix (limit {PREFIX_LIMIT}, cache off), each "
+        f"call == a sorted filter of the source: {PREFIXES} prefixes of 1-8 bytes "
+        f"{first_ms.mean():.1f} ms a call (p50 {np.percentile(first_ms, 50):.1f}, max "
+        f"{first_ms.max():.1f}), decode_compact launches a call mean "
+        f"{first_n.mean():.1f}, min {first_n.min()}, max {first_n.max()} (one per "
+        f"probed string); {n_pages} pages to the end of {len(paged)} prefixes "
+        f"({matches} matches) {pf_ms[PREFIXES:].mean():.1f} ms and "
+        f"{pf_n[PREFIXES:].mean():.1f} launches a page; {prefix_launches} launches "
+        "in all")
+    log("persist", f"[{card}] on disk after the second save: " + ", ".join(
+        f"{k} {v} B" for k, v in disk.items()) + f"; save with index.npz {save2_s:.3f} "
+        f"s, open {open2_s:.3f} s")
+    log("persist", f"[{card}] writable store ({wn} strings + {wx} appended, "
+        f"{wn + wx - w_sealed} in the tail): save {wsave_s:.3f} s, open {wopen_s:.3f} s, "
+        f"open in a fresh process {wfresh['open_s']:.3f} s; {wx} more appended after "
+        f"the open seal on the {STRINGS_PER_SEGMENT}-string boundaries; "
+        f"compact(dir_path=) total_s {wrep['total_s']} (train_s {wrep['train_s']}), "
+        f"ratio before {wrep['ratio_before']}, after {wrep['ratio_after']}; v0001 "
+        f"written, v0000 pruned; opened again in {wopen2_s:.3f} s; {served} strings "
+        "served == the source")
+
     # ------------------------------------------- 5. device share of each path
     # a window of each path, driven as above but under torch.profiler (after
     # the counts were read): kernel device time over the window's wall
@@ -519,6 +852,11 @@ def main() -> int:
         "scan": device_window(lambda: store.scan(0, n_all)),
         "extend": device_window(extend_window),
         "compact": device_window(wwin.compact),
+        "locate": device_window(
+            lambda: [opened.locate_batch(hit_q[i : i + MULTIGET_IDS])
+                     for i in range(0, 10 * MULTIGET_IDS, MULTIGET_IDS)]),
+        "scan_prefix": device_window(
+            lambda: opened.scan_prefix(prefixes[7], limit=PREFIX_LIMIT)),
     }
     path_ms: dict[str, dict[str, float]] = {}
     for path, (wall, acts) in windows.items():
@@ -564,6 +902,14 @@ def main() -> int:
             lambda: [store.multiget(ids) for ids in batches[:MULTIGET_WINDOW]], top=12))
     log("host", f"[{card}] scan(0, n) under cProfile: "
         f"{host_profile(lambda: store.scan(0, n_all))}")
+    log("host", f"[{card}] 10 locate_batch calls of {MULTIGET_IDS} hits on the opened "
+        "store under cProfile: " + host_profile(
+            lambda: [opened.locate_batch(hit_q[i : i + MULTIGET_IDS])
+                     for i in range(0, 10 * MULTIGET_IDS, MULTIGET_IDS)], top=12))
+    log("host", f"[{card}] scan_prefix({prefixes[7]!r}, limit={PREFIX_LIMIT}) on the "
+        "opened store under cProfile: " + host_profile(
+            lambda: opened.scan_prefix(prefixes[7], limit=PREFIX_LIMIT), top=12))
+    del opened
     del wwin
 
     # ---------------------------------------------------- 6. kernel parity
@@ -808,15 +1154,24 @@ def main() -> int:
         rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
                   "a real 1,024-id multiget"),
         rows_bytes(row_tokens(ids), ids.size, True, int(mirror_off(ids)[-1])),
-        counts.total["decode_compact"] - tail_launches)
+        counts.total["decode_compact"] - tail_launches - w_tail_calls - prefix_launches)
+    # a scan_prefix probe decodes one string of the mirror a launch
+    ids = np.asarray(order[:1])
+    rows_inputs["a 1-id scan_prefix probe from the mirror (uint16)"] = (
+        rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
+                  "a scan_prefix probe's one row"),
+        rows_bytes(row_tokens(ids), 1, True, int(mirror_off(ids)[-1])),
+        prefix_launches)
     ids = order[: ops._DECODE_MAX_ROWS]
     rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
               f"a full launch of {ids.size} mirror rows")
     tail_u = list(dict.fromkeys(tail_ids))
     tk, st, off = host_rows([row_tokens([i]) for i in tail_u])
+    # (the persist phase's multigets send a few tail rows a call: counted here)
     rows_inputs[f"{len(tail_u)} tail rows from the host (int32)"] = (
         rows_pair(tk, st, None, off, "the writable phase's tail rows"),
-        rows_bytes(row_tokens(tail_u), len(tail_u), False, int(off[-1])), tail_launches)
+        rows_bytes(row_tokens(tail_u), len(tail_u), False, int(off[-1])),
+        tail_launches + w_tail_calls)
     log("parity", "decode_compact (rows) == plain, exact: int32 and uint16 edge rows "
         "(0 tokens, 16-byte entries, 1 to 100 tokens and the corpus's longest "
         f"string of {tok_counts[longest]}), M=0 (no launch), an output cut short "
@@ -1043,9 +1398,11 @@ def main() -> int:
                 lambda: ref.encode_batch_ref(D, L, dd, cap), 1,
                 encode_bytes(D, L, toks, n))
     # launches on the paths: decode_all's calls are full streams of uint16;
-    # scan(0, n) and the scan after compact() each read the whole mirror;
-    # every other stream launch reads a range of at most a segment's strings
-    whole_launches = 2
+    # scan(0, n), the scan after compact() and the opened store's scan(0, n)
+    # each read the whole mirror; every other stream launch reads a range of
+    # at most a segment's strings (but the persist phase's writable store's
+    # three scans of its whole, a third of the corpus, counted here too)
+    whole_launches = 3
     stream_launches = {"full stream, uint16": stream_full_launches,
                        "full stream, int32": 0, "scan(0, n)": whole_launches,
                        "a mirror range": counts.total["decode_tokens"]
@@ -1127,7 +1484,46 @@ def decode_all_probe(path: str) -> int:
     return 0
 
 
+def open_probe(path: str, kind: str) -> int:
+    """``chip_smoke.py --open-probe DIR read|writable``: in this fresh
+    process, start CUDA and load the kernels, then time the open of the
+    store saved in DIR and read every string back by shuffled 1,024-id
+    multigets and by scan(0, n); print the seconds, the digests of both
+    reads (in id order) and the payload's sha256 prefix as one JSON line."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.store import CompressedStringStore, MutableStringStore
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)
+    _build.load()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cls = MutableStringStore if kind == "writable" else CompressedStringStore
+    t0 = time.perf_counter()
+    st = cls.open(path, device=dev)
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    n = st.n_strings
+    got: list = [None] * n
+    perm = np.random.default_rng(SEED).permutation(n)
+    for i in range(0, n, MULTIGET_IDS):
+        ids = perm[i : i + MULTIGET_IDS]
+        for k, v in zip(ids.tolist(), st.multiget(ids)):
+            got[k] = v
+    scanned = st.scan(0, n)
+    print(json.dumps({"init_s": init_s, "open_s": open_s, "multiget": digest(got),
+                      "scan": digest(scanned), "payload_sha256": hashlib.sha256(
+                          st.snapshot_corpus().payload).hexdigest()[:16]}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--decode-all-probe"]:
         sys.exit(decode_all_probe(sys.argv[2]))
+    if sys.argv[1:2] == ["--open-probe"]:
+        sys.exit(open_probe(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -1,10 +1,13 @@
-"""The compressed-corpus layout every codec produces."""
+"""The compressed-corpus layout every codec produces, and its file form."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from repro_torch.core.artifact import (dump_container, load_container,
+                                       read_container, write_container)
 
 
 @dataclass
@@ -35,6 +38,9 @@ class CompressedCorpus:
         and dictionaries are reported separately (Table 4)."""
         return self.raw_bytes / max(1, self.compressed_bytes)
 
+    def string_payload(self, i: int) -> bytes:
+        return self.payload[int(self.offsets[i]) : int(self.offsets[i + 1])].tobytes()
+
     def string_tokens(self, i: int) -> np.ndarray:
         """u16 token IDs of string ``i`` — a zero-copy view of the payload."""
         o0, o1 = int(self.offsets[i]), int(self.offsets[i + 1])
@@ -43,3 +49,74 @@ class CompressedCorpus:
     def token_counts(self) -> np.ndarray:
         """Tokens per string, i64[n_strings] (2 bytes per token ID)."""
         return ((self.offsets[1:] - self.offsets[:-1]) // 2).astype(np.int64)
+
+    def slice_strings(self, lo: int, hi: int) -> "CompressedCorpus":
+        """Sub-corpus covering string ids [lo, hi) with rebased offsets.
+
+        raw_bytes is pro-rated by payload share (exact per-string raw sizes
+        are not stored), as the reference pro-rates it."""
+        meta = dict(self.meta)
+        if "str_block" in meta:
+            raise ValueError("slice_strings: block-layout corpora cannot be "
+                             "sliced on string boundaries")
+        b0, b1 = int(self.offsets[lo]), int(self.offsets[hi])
+        share = ((b1 - b0) / self.payload.size if self.payload.size
+                 else (hi - lo) / max(1, self.n_strings))
+        return CompressedCorpus(
+            payload=self.payload[b0:b1],
+            offsets=(self.offsets[lo : hi + 1] - b0).astype(np.int64),
+            raw_bytes=int(round(self.raw_bytes * share)), meta=meta)
+
+    # ------------------------------------------------------------- persistence
+    # The reference's container and header, byte for byte: a corpus saved by
+    # either package loads in the other.
+    def _split_meta(self) -> tuple[dict, dict]:
+        """meta -> (json-able scalars, ndarray sections); drops caches."""
+        scalars, arrays = {}, {}
+        for k, v in self.meta.items():
+            if k.startswith("_"):
+                continue  # transient (e.g. a block decode cache)
+            if isinstance(v, np.ndarray):
+                arrays[f"meta.{k}"] = v
+            else:
+                scalars[k] = v
+        return scalars, arrays
+
+    def _header_arrays(self) -> tuple[dict, dict]:
+        scalars, meta_arrays = self._split_meta()
+        header = {"kind": "compressed_corpus", "format_version": 1,
+                  "raw_bytes": int(self.raw_bytes), "meta": scalars}
+        return header, {"payload": self.payload, "offsets": self.offsets,
+                        **meta_arrays}
+
+    def save(self, path: str) -> None:
+        """Persist payload + offsets + meta in the shared artifact container."""
+        write_container(path, *self._header_arrays())
+
+    def to_bytes(self) -> bytes:
+        return dump_container(*self._header_arrays())
+
+    @classmethod
+    def _from_parsed(cls, header: dict, arrays: dict) -> "CompressedCorpus":
+        if header.get("kind") != "compressed_corpus":
+            raise ValueError(f"container holds {header.get('kind')!r}, "
+                             "not a compressed_corpus")
+        meta = dict(header.get("meta", {}))
+        for k, v in arrays.items():
+            if k.startswith("meta."):
+                meta[k[len("meta."):]] = v
+        return cls(payload=np.asarray(arrays["payload"], dtype=np.uint8),
+                   offsets=np.asarray(arrays["offsets"], dtype=np.int64),
+                   raw_bytes=int(header["raw_bytes"]), meta=meta)
+
+    @classmethod
+    def load(cls, path: str, mmap: bool = True) -> "CompressedCorpus":
+        """Load a saved corpus; with ``mmap=True`` payload and offsets are
+        read-only maps of the file (copy before writing or handing them to
+        torch)."""
+        header, arrays = read_container(path, mmap=mmap)
+        return cls._from_parsed(header, arrays)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "CompressedCorpus":
+        return cls._from_parsed(*load_container(data))

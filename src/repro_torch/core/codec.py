@@ -2,6 +2,7 @@
 
     dictionary = PackedDictionary.build(train_dictionary(strings, cfg).entries)
     corpus = Encoder(dictionary).encode(strings)          # encode kernel
+    Encoder(DictArtifact.load("dict.rpa"))                # or a saved artifact
     Decoder(dictionary).multiget(corpus, [17, 3])         # decode kernel
     Decoder(dictionary).decode_all(corpus)                # stream kernel
 
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import CompressedCorpus
+from repro_torch.core.artifact import DictArtifact
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.kernels.ref import DeviceDict
@@ -23,7 +25,7 @@ from repro_torch.kernels.ref import DeviceDict
 class Encoder:
     """Per-string encoder: every string is compressed on its own."""
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict,
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
                  device: str | torch.device = "cuda"):
         self._device = OnPairDevice(dictionary, device)
 
@@ -45,7 +47,7 @@ class Encoder:
 class Decoder:
     """Random-access decoder over a compressed corpus."""
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict,
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
                  device: str | torch.device = "cuda"):
         self._device = OnPairDevice(dictionary, device)
 

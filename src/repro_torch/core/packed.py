@@ -23,6 +23,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from repro_torch.core.artifact import DictArtifact
+
 U32 = np.uint32
 _M32 = 0xFFFFFFFF
 
@@ -202,3 +204,29 @@ class PackedDictionary:
                   self.bucket_start, self.bucket_size, self.suf_lo,
                   self.suf_hi, self.suf_len, self.suf_tok)
         return self.total_bytes + sum(a.nbytes for a in arrays)
+
+    # -------------------------------------------------------------- serialise
+    # The persistent form of a dictionary is a DictArtifact (table + codec
+    # name + format version); every other array is derived from the entries
+    # at build() time, so only the table ships.
+    def to_artifact(self, codec: str | None = None) -> DictArtifact:
+        return DictArtifact.from_entries(
+            codec or ("onpair16" if self.variant16 else "onpair"), self.entries)
+
+    @classmethod
+    def from_artifact(cls, artifact: DictArtifact) -> "PackedDictionary":
+        return cls.build(artifact.entries)
+
+    def save(self, path: str) -> None:
+        self.to_artifact().save(path)
+
+    @classmethod
+    def load(cls, path: str) -> "PackedDictionary":
+        return cls.from_artifact(DictArtifact.load(path))
+
+    def to_bytes(self) -> bytes:
+        return self.to_artifact().to_bytes()
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "PackedDictionary":
+        return cls.from_artifact(DictArtifact.from_bytes(data))

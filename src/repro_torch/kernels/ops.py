@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.artifact import DictArtifact
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build, onpair_decode, onpair_encode
@@ -94,13 +95,21 @@ def pack_token_matrix(token_lists: list[np.ndarray], pad_tokens: int | None = No
 class OnPairDevice:
     """OnPair16 encode and decode on one device, over a frozen dictionary.
 
-    ``dictionary`` is a :class:`PackedDictionary` (uploaded here) or a
-    :class:`DeviceDict` already on ``device``.
+    ``dictionary`` is a :class:`PackedDictionary` (uploaded here), a
+    :class:`DeviceDict` already on ``device``, or a saved
+    :class:`DictArtifact` (see :meth:`from_artifact`).
     """
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict,
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        if isinstance(dictionary, DictArtifact):
+            if dictionary.codec != "onpair16":
+                raise ValueError(
+                    f"codec {dictionary.codec!r} is not device-decodable "
+                    "(registry capability); only bounded-entry token-stream "
+                    "dictionaries run on the kernels")
+            dictionary = PackedDictionary.from_artifact(dictionary)
         #: the host dictionary, where one was given (None for bare tables)
         self.dictionary: PackedDictionary | None = None
         if isinstance(dictionary, DeviceDict):
@@ -110,8 +119,8 @@ class OnPairDevice:
             self.dd = dictionary
         else:
             if not dictionary.variant16:
-                raise ValueError("the device kernels decode OnPair16 "
-                                 "(entries of at most 16 bytes)")
+                raise ValueError("device kernels target OnPair16 (<=16B entries); "
+                                 "unbounded OnPair stays on the host path")
             self.dictionary = dictionary
             self.dd = DeviceDict.build(dictionary, self.device)
         self._path = "cuda" if self.device.type == "cuda" else "ref"
@@ -125,6 +134,15 @@ class OnPairDevice:
         # drawn from encode_len_caps, as in the reference's bucketed encode
         self.encode_len_caps: list[int] = list(_ENCODE_LEN_BUCKETS)
         self.encode_pad_batch: int = _ENCODE_PAD_BATCH
+
+    @classmethod
+    def from_artifact(cls, artifact: DictArtifact,
+                      device: str | torch.device = "cuda") -> "OnPairDevice":
+        """Open the device codec straight from a saved DictArtifact (the
+        shipping path: train on one host, save, decode on another). Only
+        ``"onpair16"`` artifacts with entries of at most 16 bytes run on the
+        kernels; any other raises ValueError."""
+        return cls(artifact, device)
 
     @property
     def resident_bytes(self) -> int:

@@ -150,6 +150,13 @@ class DeviceDict:
     def num_entries(self) -> int:
         return self.mat16.shape[0]
 
+    def entries(self) -> list[bytes]:
+        """The dictionary's entries, read back from the tables: row ``i`` of
+        ``mat16`` cut to ``lens[i]`` (OnPair16 entries fit their row)."""
+        rows = self.mat16.cpu().numpy().tobytes()
+        lens = self.lens.cpu().numpy().tolist()
+        return [rows[16 * i : 16 * i + n] for i, n in enumerate(lens)]
+
     @property
     def nbytes(self) -> int:
         """Bytes the tables occupy on the device."""

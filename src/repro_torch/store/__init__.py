@@ -1,10 +1,13 @@
-"""The compressed string store: batched random access on the device, and
-the writable store over it (append into a tail, seal, compact on drift)."""
+"""The compressed string store: batched random access on the device, the
+writable store over it (append into a tail, seal, compact on drift), reverse
+lookup (locate, scan_prefix) and save/open in the reference's layout."""
 
 from repro_torch.store.cache import LRUCache
 from repro_torch.store.drift import DriftMonitor
 from repro_torch.store.mutable import MutableStringStore
+from repro_torch.store.segment import Segment, SegmentedCorpus
+from repro_torch.store.stats import StoreStats
 from repro_torch.store.store import CompressedStringStore
 
 __all__ = ["CompressedStringStore", "DriftMonitor", "LRUCache",
-           "MutableStringStore"]
+           "MutableStringStore", "Segment", "SegmentedCorpus", "StoreStats"]

@@ -17,29 +17,47 @@ The writable store layers that lifecycle over
   ratio of appended data against the train-time ratio; ``compact()``
   re-trains a dictionary on the live data (with the store's
   :class:`~repro_torch.core.onpair.OnPairConfig`), re-encodes every string
-  through the encode kernel and swaps the store's state under its lock.
+  through the encode kernel and swaps the store's state under its lock
+  (and, when the store is backed by a directory, writes a new versioned
+  generation there).
 
-The store lives in memory: saving and reopening it is not part of the port
-yet.
+On disk a writable store is the reference's *versioned* directory, which
+either package opens::
+
+    <dir>/current.json     atomic manifest: {"current": "v0000", ...}
+    <dir>/v0000/           one flat store layout per dictionary generation
+        dictionary.rpa       (the artifact, with the training config)
+        corpus.rpc           (sealed segments + unsealed tail strings)
+        store.json           (construction params + n_tail + drift state)
+        index.npz            (reverse-lookup indexes, once anyone located)
+    <dir>/v0001/           written by compact(); the manifest swap is atomic
+
+``open()`` also accepts a plain read-only store directory (no manifest).
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import threading
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.core.api import CompressedCorpus
+from repro_torch.core.artifact import DictArtifact
 from repro_torch.core.codec import Encoder
+from repro_torch.core.index import SegmentIndex
 from repro_torch.core.onpair import OnPairConfig, train_dictionary
 from repro_torch.core.packed import PackedDictionary
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.kernels.ref import DeviceDict
 from repro_torch.store.drift import DriftMonitor
 from repro_torch.store.resident import ResidentSegments
 from repro_torch.store.segment import SegmentedCorpus
-from repro_torch.store.store import CompressedStringStore
+from repro_torch.store.store import CompressedStringStore, write_json_atomic
 
 
 def _empty_corpus() -> CompressedCorpus:
@@ -61,9 +79,9 @@ class MutableStringStore(CompressedStringStore):
 
     ``corpus`` may be ``None`` to start an empty store that appends fill.
     ``config`` is the OnPair16 training configuration ``compact()`` retrains
-    with: ``build`` passes the one it trained with, and a store opened over
-    a dictionary without one defaults to ``OnPairConfig.onpair16()``. Other
-    keywords are the read store's.
+    with: ``build`` passes the one it trained with, an artifact carries one,
+    and a store opened over a dictionary without one defaults to
+    ``OnPairConfig.onpair16()``. Other keywords are the read store's.
     """
 
     #: optimistic encode attempts before extend() takes the store lock for
@@ -71,29 +89,38 @@ class MutableStringStore(CompressedStringStore):
     #: swapping the dictionary between parse and ingest invalidates the batch)
     _MAX_ENCODE_RETRIES = 3
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict,
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
                  corpus: CompressedCorpus | None = None, *,
                  config: OnPairConfig | None = None,
                  drift_threshold: float = 0.2, auto_compact: bool = False,
                  train_ratio: float | None = None, async_seal: bool = True,
                  **store_kw):
-        config = config if config is not None else OnPairConfig.onpair16()
-        if config.max_entry_len is None or config.max_entry_len > 16:
-            raise ValueError("compact() retrains for the device kernels, which "
-                             "decode OnPair16: max_entry_len must be <= 16")
         # tail state exists before the base constructor, which reads n_strings
         self._tail: list[bytes] = []       # compressed payload per string
         self._tail_raw: list[int] = []     # decoded byte length per string
         self._tail_bytes = 0
         self._n_total = 0
+        # reverse-lookup tail map: compressed payload -> lowest tail-local
+        # id; None until the first tail locate builds it, then kept by
+        # ingest and seal, so the write path pays nothing before anyone
+        # queries
+        self._tail_map: dict[bytes, int] | None = None
         if corpus is None:
             corpus = _empty_corpus()
         super().__init__(dictionary, corpus, config=config, **store_kw)
+        if self.config is None:
+            self.config = OnPairConfig.onpair16()
+        if self.config.max_entry_len is None or self.config.max_entry_len > 16:
+            raise ValueError("compact() retrains for the device kernels, which "
+                             "decode OnPair16: max_entry_len must be <= 16")
         self._n_total = self.segments.n_strings
         self._encoder = self._make_encoder(self._device)
         # serialises encoder use between extend() callers (the bucketed
         # encode grows its shape list on demand)
         self._encode_lock = threading.Lock()
+        self._io_lock = threading.RLock()   # serialises save/swap/prune
+        self._dirty = False                 # unsaved appends or compactions
+        self._dir: str | None = None        # set by save()/open(): compact() target
         base = train_ratio if train_ratio is not None else (
             corpus.ratio if corpus.compressed_bytes else None)
         self.drift = DriftMonitor(threshold=drift_threshold,
@@ -130,15 +157,61 @@ class MutableStringStore(CompressedStringStore):
     def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
         if lo >= hi:
             return []
-        tokens = np.frombuffer(bytearray().join(self._tail[lo:hi]), dtype="<u2")
-        return self._device.decode_span(self._device.upload_tokens(tokens),
-                                        self._tail_raw[lo:hi])
+        return self._decode_payloads(self._device, self._tail[lo:hi],
+                                     self._tail_raw[lo:hi])
+
+    @staticmethod
+    def _decode_payloads(device: OnPairDevice, parts: list[bytes],
+                         raw_lens: list[int]) -> list[bytes]:
+        """Tail payloads decoded in one call of the stream kernel on
+        ``device`` (the seal worker passes the device it captured under the
+        lock)."""
+        tokens = np.frombuffer(bytearray().join(parts), dtype="<u2")
+        return device.decode_span(device.upload_tokens(tokens), raw_lens)
+
+    def _tail_locate(self, payload: bytes) -> int | None:
+        if self._tail_map is None:
+            # first tail locate: build the map once; ingest keeps it after
+            self._map_tail_locked()
+        return self._tail_map.get(payload)
+
+    def _map_tail_locked(self) -> None:
+        """The tail map anew: each payload's lowest tail-local id."""
+        m: dict[bytes, int] = {}
+        for local, p in enumerate(self._tail):
+            m.setdefault(p, local)
+        self._tail_map = m
+
+    def _tail_prefix_hits(self, prefix, after):
+        n = len(self._tail)
+        if n == 0:
+            return []
+        sealed = self.segments.n_strings
+        hits = []
+        for local, s in enumerate(self._tail_scan(0, n)):
+            if not s.startswith(prefix):
+                continue
+            gid = sealed + local
+            if after is not None and (s, gid) <= after:
+                continue
+            hits.append((s, gid))
+        hits.sort()
+        return hits
 
     @property
     def n_strings(self) -> int:
         # a plain int read: monotonic for unlocked readers even while a seal
         # moves strings from the tail into a new segment under the lock
         return self._n_total
+
+    # ---------------------------------------------------------- reverse lookup
+    def _query_encoder(self) -> Encoder:
+        # queries parse against the generation the tail was encoded with
+        return self._encoder
+
+    def _encode_queries(self, strings: list[bytes]) -> CompressedCorpus:
+        with self._encode_lock:  # as extend() uses the encoder
+            return super()._encode_queries(strings)
 
     # ----------------------------------------------------------------- writes
     def append(self, s: bytes) -> int:
@@ -198,8 +271,13 @@ class MutableStringStore(CompressedStringStore):
         published (compact's delta) without moving ``_n_total``. Crossing a
         seal boundary requests a background seal (or seals inline when
         ``async_seal`` is off)."""
+        self._dirty = True
         n = len(payloads)
         ids = list(range(self._n_total, self._n_total + n)) if assign_ids else []
+        if self._tail_map is not None:
+            start = len(self._tail)
+            for j, p in enumerate(payloads):
+                self._tail_map.setdefault(p, start + j)
         self._tail.extend(payloads)
         self._tail_raw.extend(raw_lens)
         comp = sum(map(len, payloads))
@@ -229,18 +307,31 @@ class MutableStringStore(CompressedStringStore):
         if k == 0:
             return
         payload, offsets = self._build_segment(self._tail[:k])
-        self._commit_seal_locked(k, payload, offsets, sum(self._tail_raw[:k]))
+        # once anyone has located, keep the index current: the new segment's
+        # index is built at seal time from its strings (decoded before the
+        # tail drops them); stores nobody locates in never pay this decode
+        raw = (self._tail_scan(0, k)
+               if self._seg_indexes or self._tail_map is not None else None)
+        self._commit_seal_locked(k, payload, offsets, sum(self._tail_raw[:k]),
+                                 raw)
 
     def _commit_seal_locked(self, k: int, payload: np.ndarray,
-                            offsets: np.ndarray, raw_bytes: int) -> None:
+                            offsets: np.ndarray, raw_bytes: int,
+                            raw: list[bytes] | None) -> None:
         """Append the built segment, to the device mirror too, and drop the
-        first ``k`` tail strings. Bumps ``_tail_gen``: any other in-flight
-        snapshot of the old tail prefix is now stale and must not commit."""
+        first ``k`` tail strings; index it when ``raw`` (its strings) is
+        given. Bumps ``_tail_gen``: any other in-flight snapshot of the old
+        tail prefix is now stale and must not commit."""
         self.resident.append(payload, offsets)  # checks the tokens first
-        self.segments.append_segment(payload, offsets, raw_bytes=raw_bytes)
+        seg = self.segments.append_segment(payload, offsets, raw_bytes=raw_bytes)
+        if raw is not None:
+            self._seg_indexes[seg.index] = SegmentIndex.build(
+                seg.payload, seg.offsets, raw)
         del self._tail[:k]
         del self._tail_raw[:k]
         self._tail_bytes -= int(offsets[-1])
+        if self._tail_map is not None:
+            self._map_tail_locked()  # the seal shifted every tail-local id
         self._tail_gen += 1
 
     def _request_seal_locked(self) -> None:
@@ -253,8 +344,10 @@ class MutableStringStore(CompressedStringStore):
     def _seal_worker(self) -> None:
         """Drain the tail below the seal boundary, one segment a round. Each
         round snapshots the first ``spc`` payloads under the lock, builds
-        the segment off the lock, and commits only if neither a compaction
-        (version_id) nor another seal (_tail_gen) changed the tail since."""
+        the segment (and, once anyone has located, decodes its strings for
+        the index, on the device captured with the snapshot) off the lock,
+        and commits only if neither a compaction (version_id) nor another
+        seal (_tail_gen) changed the tail since."""
         while True:
             with self._lock:
                 spc = self.segments.strings_per_segment
@@ -264,15 +357,21 @@ class MutableStringStore(CompressedStringStore):
                     return
                 version, gen = self.version_id, self._tail_gen
                 parts = self._tail[:spc]
-                raw_bytes = sum(self._tail_raw[:spc])
+                raw_lens = self._tail_raw[:spc]
+                need_raw = bool(self._seg_indexes) or self._tail_map is not None
+                device = self._device
             payload, offsets = self._build_segment(parts)
+            raw = (self._decode_payloads(device, parts, raw_lens)
+                   if need_raw else None)
             with self._lock:
                 if self.version_id != version or self._tail_gen != gen:
                     continue  # the snapshot went stale: start the round again
-                self._commit_seal_locked(spc, payload, offsets, raw_bytes)
+                self._commit_seal_locked(spc, payload, offsets, sum(raw_lens),
+                                         raw)
 
     # ------------------------------------------------------------- compaction
-    def compact(self, *, sample_strings: int | None = None) -> dict:
+    def compact(self, *, sample_strings: int | None = None,
+                dir_path: str | None = None, prune_old: bool = True) -> dict:
         """Re-train the dictionary on (a sample of) the live data, re-encode
         every live string through the encode kernel, and swap the store's
         state under its lock.
@@ -281,7 +380,11 @@ class MutableStringStore(CompressedStringStore):
         in per-segment lock windows; training, the table upload and the bulk
         re-encode run outside the lock, so reads and appends keep being
         served from the old state. Strings appended meanwhile are re-parsed
-        against the new dictionary during the locked swap.
+        against the new dictionary during the locked swap. When the store is
+        directory-backed (``dir_path``, or the directory of the last
+        ``save``/``open``), the new generation is saved as ``v{n+1}/``, the
+        ``current.json`` manifest swapped, and the old generation pruned
+        (``prune_old=False`` keeps it).
         """
         t0 = time.perf_counter()
         self.seal_barrier()  # never snapshot a half-built background segment
@@ -296,7 +399,7 @@ class MutableStringStore(CompressedStringStore):
         if not live:
             return {"n_strings": 0, "ratio_before": 0.0, "ratio_after": 0.0,
                     "train_s": 0.0, "total_s": 0.0,
-                    "version": self._version_name()}
+                    "version": self._version_name(), "dir": self._dir}
         raw = sum(len(s) for s in live)
         with self._lock:
             compressed_before = self.segments.payload_bytes + self._tail_bytes
@@ -327,13 +430,25 @@ class MutableStringStore(CompressedStringStore):
                                     [len(s) for s in delta], assign_ids=False)
             compressed_after = self.segments.payload_bytes + self._tail_bytes
         self.compactions += 1
+
+        target = dir_path or self._dir
+        old_version = f"v{self.version_id - 1:04d}"
+        if target is not None:
+            # one holder writes the directory at a time: a concurrent save()
+            # must not recreate (or point the manifest at) the generation
+            # this prune deletes
+            with self._io_lock:
+                self.save(target)  # writes v{id}/ then swaps current.json
+                if prune_old:
+                    shutil.rmtree(os.path.join(target, old_version),
+                                  ignore_errors=True)
         raw_total = raw + sum(len(s) for s in delta)
         return {"n_strings": self.n_strings,
                 "ratio_before": round(ratio_before, 4),
                 "ratio_after": round(raw_total / max(1, compressed_after), 4),
                 "train_s": round(train_s, 4),
                 "total_s": round(time.perf_counter() - t0, 4),
-                "version": self._version_name()}
+                "version": f"v{self.version_id:04d}", "dir": target}
 
     def _swap_state_locked(self, dictionary: PackedDictionary | DeviceDict,
                            corpus: CompressedCorpus,
@@ -354,9 +469,16 @@ class MutableStringStore(CompressedStringStore):
         self._set_bucket_caps(corpus.token_counts())
         self._encoder = (encoder if encoder is not None
                          else self._make_encoder(self._device))
+        self._artifact = None  # frozen anew from the new tables on demand
+        self._dirty = True
         self._tail = []
         self._tail_raw = []
         self._tail_bytes = 0
+        # reverse-lookup state belongs to a generation: fingerprints index
+        # the encoded forms, which the rewrite just changed
+        self._seg_indexes = {}
+        self._tail_map = None
+        self._locate_encoder = None
         # _n_total is not reset: acknowledged ids never un-publish, and the
         # caller re-files any delta beyond the corpus
         self.cache.clear()
@@ -369,25 +491,129 @@ class MutableStringStore(CompressedStringStore):
         return f"v{self.version_id:04d}"
 
     def snapshot_corpus(self) -> CompressedCorpus:
-        """One flat corpus over the sealed segments and the unsealed tail."""
         with self._lock:
-            parts = [s.payload for s in self.segments.segments]
-            parts += [np.frombuffer(p, dtype=np.uint8) for p in self._tail]
-            payload = (np.concatenate(parts) if parts
-                       else np.zeros(0, dtype=np.uint8))
-            offs = [np.zeros(1, dtype=np.int64)]
-            base = 0
-            for seg in self.segments.segments:
-                if seg.n_strings:
-                    offs.append(seg.offsets[1:] + base)
-                base += seg.payload_bytes
-            for p in self._tail:
-                base += len(p)
-                offs.append(np.asarray([base], dtype=np.int64))
-            raw = self.segments.raw_bytes + sum(self._tail_raw)
+            return self._to_corpus_locked()
+
+    def _to_corpus_locked(self) -> CompressedCorpus:
+        """One flat corpus over the sealed segments and the unsealed tail."""
+        parts = [s.payload for s in self.segments.segments]
+        parts += [np.frombuffer(p, dtype=np.uint8) for p in self._tail]
+        payload = (np.concatenate(parts) if parts
+                   else np.zeros(0, dtype=np.uint8))
+        offs = [np.zeros(1, dtype=np.int64)]
+        base = 0
+        for seg in self.segments.segments:
+            if seg.n_strings:
+                offs.append(seg.offsets[1:] + base)
+            base += seg.payload_bytes
+        for p in self._tail:
+            base += len(p)
+            offs.append(np.asarray([base], dtype=np.int64))
+        raw = self.segments.raw_bytes + sum(self._tail_raw)
         return CompressedCorpus(payload=payload, offsets=np.concatenate(offs),
                                 raw_bytes=int(raw),
                                 meta={"compressor": "onpair16"})
+
+    def save(self, dir_path: str) -> None:
+        """Write the current dictionary generation as ``<dir>/v{id}/`` (the
+        flat store layout, tail included in the corpus) and atomically point
+        the ``current.json`` manifest at it.
+
+        Dictionary, corpus, version name, meta and index blob are snapshotted
+        in one locked section, after any background seal, so a compact()
+        landing mid-save never pairs one generation's dictionary with
+        another's corpus; the whole snapshot and write hold the IO lock, so
+        they serialise against compact()'s own save and prune.
+        """
+        self.seal_barrier()  # the snapshot below must see a settled tail
+        with self._io_lock:
+            self._save_io_locked(dir_path)
+
+    def _save_io_locked(self, dir_path: str) -> None:
+        with self._lock:
+            vname = self._version_name()
+            artifact = self.artifact
+            corpus = self._to_corpus_locked()
+            # encode_backend is the reference's key: "numpy" is the value it
+            # accepts on every host; the port always encodes on its kernel
+            meta = self.store_meta(
+                mutable=True, n_tail=len(self._tail),
+                version_id=self.version_id, encode_backend="numpy",
+                async_seal=self.async_seal,
+                train_ratio=self.drift.baseline_ratio,
+                drift_raw_bytes=self.drift.raw_bytes,
+                drift_compressed_bytes=self.drift.compressed_bytes,
+                drift_observations=self.drift.observations,
+                drift_threshold=self.drift.threshold)
+            manifest = {"format_version": 1, "current": vname,
+                        "codec": artifact.codec, "n_strings": self.n_strings,
+                        "compactions": self.compactions}
+            # the sidecar must describe exactly the segments it sits next to
+            index_blob = self._dump_index_locked()
+            # cleared inside the snapshot: an append landing while the files
+            # below are written marks the store dirty again
+            self._dirty = False
+        sub = os.path.join(dir_path, vname)
+        os.makedirs(sub, exist_ok=True)
+        artifact.save(os.path.join(sub, self._DICT_FILE))
+        corpus.save(os.path.join(sub, self._CORPUS_FILE))
+        write_json_atomic(os.path.join(sub, self._META_FILE), meta)
+        if index_blob is not None:
+            with open(os.path.join(sub, self._INDEX_FILE), "wb") as f:
+                f.write(index_blob)
+        write_json_atomic(os.path.join(dir_path, self._CURRENT_FILE), manifest)
+        # upgrading a plain (flat) store directory to the versioned layout:
+        # drop the superseded flat files, so a reader never finds two
+        # generations that disagree in one directory
+        for name in (self._DICT_FILE, self._CORPUS_FILE, self._META_FILE,
+                     self._INDEX_FILE):
+            stale = os.path.join(dir_path, name)
+            if os.path.exists(stale):
+                os.remove(stale)
+        self._dir = dir_path
+
+    @classmethod
+    def open(cls, dir_path: str, mmap: bool = True,
+             device: str | torch.device = "cuda",
+             **overrides) -> "MutableStringStore":
+        """Reopen a writable store, either package's: the versioned layout
+        (``current.json``) or a plain read-only store directory. An unsealed
+        tail saved with the corpus is split back out so appends keep sealing
+        on the same boundaries, and the drift window is restored as saved.
+        ``overrides`` beat every saved param; the saved ``encode_backend``
+        is ignored (the port encodes on its kernel)."""
+        device = resolve_device(device)
+        sub = cls._resolve_current(dir_path)
+        meta = cls._read_meta(sub)
+        artifact = DictArtifact.load(os.path.join(sub, cls._DICT_FILE), mmap=mmap)
+        corpus = CompressedCorpus.load(os.path.join(sub, cls._CORPUS_FILE),
+                                       mmap=mmap)
+        n, n_tail = corpus.n_strings, int(meta.get("n_tail", 0))
+        sealed = corpus.slice_strings(0, n - n_tail) if n_tail else corpus
+        kw = {k: meta[k] for k in cls._STORE_KW}
+        kw["train_ratio"] = meta.get("train_ratio")
+        kw["drift_threshold"] = meta.get("drift_threshold", 0.2)
+        kw["async_seal"] = meta.get("async_seal", True)
+        kw.update(overrides)
+        store = cls(artifact, sealed, device=device, **kw)
+        if n_tail:
+            # each tail string's decoded length, from the entry lengths
+            lens = store._device.host_lens
+            payloads = [corpus.string_payload(i) for i in range(n - n_tail, n)]
+            raws = [int(lens[np.frombuffer(p, dtype="<u2")].sum())
+                    for p in payloads]
+            with store._lock:
+                store._ingest_locked(payloads, raws)
+        # the tail's re-ingest observed only the tail: restore the window
+        if "drift_raw_bytes" in meta:
+            store.drift.raw_bytes = int(meta["drift_raw_bytes"])
+            store.drift.compressed_bytes = int(meta["drift_compressed_bytes"])
+            store.drift.observations = int(meta["drift_observations"])
+        store.version_id = int(meta.get("version_id", 0))
+        store._load_index(sub)
+        store._dir = dir_path
+        store._dirty = False  # the tail's restore is not an unsaved append
+        return store
 
     def stats_snapshot(self) -> dict:
         snap = super().stats_snapshot()

@@ -23,6 +23,9 @@ class StoreStats:
         self.padded_rows = 0
         self.decode_seconds = 0.0
         self.scan_strings = 0       # strings returned by scan()
+        self.locates = 0            # reverse lookups (queries, incl. misses)
+        self.locate_hits = 0        # reverse lookups that found an id
+        self.prefix_scans = 0       # scan_prefix calls
         # (B, T) decode shapes launched; the reference's name for them
         self.jit_shapes: set[tuple[int, int]] = set()
         # per-store instruments registered into the process registry,
@@ -32,11 +35,19 @@ class StoreStats:
             "repro_store_multiget_latency_us", labels=labels))
         self._lookups_total = REGISTRY.register(Counter(
             "repro_store_lookups_total", labels=labels))
+        self._locate_lat = REGISTRY.register(Histogram(
+            "repro_store_locate_latency_us", labels=labels))
 
     def record_multiget(self, n_ids: int, seconds: float) -> None:
         self.lookups += n_ids
         self._lookups_total.inc(n_ids)
         self._lat.record_seconds(seconds)
+
+    def record_locate(self, n_queries: int, n_hits: int,
+                      seconds: float) -> None:
+        self.locates += n_queries
+        self.locate_hits += n_hits
+        self._locate_lat.record_seconds(seconds)
 
     def record_decode(self, chunks: dict[tuple[int, int], int], n_real: int,
                       nbytes: int, seconds: float) -> None:
@@ -58,6 +69,9 @@ class StoreStats:
             "decoded_strings": self.decoded_strings,
             "decoded_bytes": self.decoded_bytes,
             "scan_strings": self.scan_strings,
+            "locates": self.locates,
+            "locate_hits": self.locate_hits,
+            "prefix_scans": self.prefix_scans,
             "batches": self.batches,
             "padded_rows": self.padded_rows,
             "pad_efficiency": round(

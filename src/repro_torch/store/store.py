@@ -18,18 +18,37 @@ device mirror's token buffer, decoded by one call of the stream kernel
 ``OnPairDevice.decode_span``), with no token upload; the mirror's host copy
 of the decoded lengths sizes the output and splits it per string. A
 writable store's tail takes a second call.
+
+Reverse lookup (``locate``, ``scan_prefix``): the reference's per-segment
+:class:`~repro_torch.core.index.SegmentIndex`, built on first use from the
+segment's strings read through the stream kernel; queries encode through
+the encode kernel and compare in compressed form.
+
+Persistence (``save``/``open``): the reference's directory layout and
+bytes (``dictionary.rpa``, ``corpus.rpc``, ``store.json`` and the optional
+``index.npz``), so a store saved by either package opens in the other. The
+device mirror is not saved: ``open`` rebuilds it from the corpus, as a
+build does.
 """
 
 from __future__ import annotations
 
+import heapq
+import json
+import os
 import threading
 import time
+from dataclasses import asdict
+from itertools import islice
 
 import numpy as np
 import torch
 
 from repro_torch.core.api import CompressedCorpus
+from repro_torch.core.artifact import DictArtifact
 from repro_torch.core.codec import Encoder
+from repro_torch.core.index import (SegmentIndex, dump_indexes, fingerprints,
+                                    load_indexes)
 from repro_torch.core.onpair import OnPairConfig, train_dictionary
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.device import resolve_device
@@ -55,6 +74,14 @@ def _ceil8(x: int) -> int:
     return max(8, (int(x) + 7) // 8 * 8)
 
 
+def write_json_atomic(path: str, obj: dict) -> None:
+    """Write JSON via temp-file + rename so readers never see a torn file."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=1)
+    os.replace(tmp, path)
+
+
 def _id_array(ids) -> np.ndarray:
     """Requested ids as int64, converted in C where they are integers
     already (a list of ints, a range, an integer array)."""
@@ -70,13 +97,19 @@ class CompressedStringStore:
     """Queryable in-memory store over one compressed corpus.
 
     ``dictionary`` is the frozen :class:`PackedDictionary` the corpus was
-    encoded with, or its tables already on ``device`` as a
-    :class:`DeviceDict` (see :mod:`repro_torch.convert`). ``config`` is the
-    training configuration the dictionary came from, where it is known
-    (``build`` passes its own); the writable store retrains with it.
+    encoded with, its tables already on ``device`` as a :class:`DeviceDict`
+    (see :mod:`repro_torch.convert`), or a saved :class:`DictArtifact`.
+    ``config`` is the training configuration the dictionary came from, where
+    it is known (``build`` passes its own, an artifact carries one); the
+    writable store retrains with it, and ``save`` writes it into the
+    artifact.
     """
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict,
+    #: bumped by a writable store's compact(); locate re-encodes its queries
+    #: when a swap lands between their encode and the probe
+    version_id = 0
+
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
                  corpus: CompressedCorpus, *,
                  config: OnPairConfig | None = None,
                  device: str | torch.device = "cuda",
@@ -87,6 +120,11 @@ class CompressedStringStore:
             raise ValueError(f"num_buckets must be in 1..{len(_BUCKET_QUANTILES)}")
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
+        self._artifact: DictArtifact | None = None
+        if isinstance(dictionary, DictArtifact):
+            self._artifact = dictionary
+            if config is None and dictionary.config:
+                config = OnPairConfig(**dictionary.config)
         self._device = OnPairDevice(dictionary, device)
         self.config = config
         self.backend = self._device.device.type
@@ -98,6 +136,11 @@ class CompressedStringStore:
         self.batch_size = int(batch_size)
         self.num_buckets = int(num_buckets)
         self._lock = threading.Lock()
+        # reverse-lookup state: per-segment indexes (built on the first
+        # locate/scan_prefix, at seal time once anyone has located) and the
+        # query encoder (built on first use: most stores never locate)
+        self._seg_indexes: dict[int, SegmentIndex] = {}
+        self._locate_encoder: Encoder | None = None
         self.stats = StoreStats(backend=self.backend)
         self._set_bucket_caps(corpus.token_counts())
 
@@ -128,6 +171,119 @@ class CompressedStringStore:
         corpus = Encoder(dictionary, device=device).encode(strings)
         return cls(dictionary, corpus, config=config, device=device, **store_kw)
 
+    # ------------------------------------------------------------- persistence
+    #: directory layout written by save() / read by open(), the reference's
+    _DICT_FILE = "dictionary.rpa"
+    _CORPUS_FILE = "corpus.rpc"
+    _META_FILE = "store.json"
+    #: optional reverse-lookup sidecar; open() validates it against the live
+    #: segmentation and drops a segment's index on any mismatch
+    _INDEX_FILE = "index.npz"
+    #: manifest of the versioned (writable-store) directory layout
+    _CURRENT_FILE = "current.json"
+    #: construction params persisted in store.json and restored by open()
+    _STORE_KW = ("strings_per_segment", "cache_bytes", "batch_size",
+                 "num_buckets")
+
+    @property
+    def artifact(self) -> DictArtifact:
+        """The store's dictionary as an immutable, serializable artifact
+        (codec ``"onpair16"``, the training config where known). Over bare
+        device tables the entries are read back from them."""
+        if self._artifact is None:
+            d = self._device.dictionary
+            entries = d.entries if d is not None else self._device.dd.entries()
+            self._artifact = DictArtifact.from_entries(
+                "onpair16", entries,
+                config=asdict(self.config) if self.config is not None else None)
+        return self._artifact
+
+    def snapshot_corpus(self) -> CompressedCorpus:
+        """The store's full compressed payload as one corpus. The writable
+        store flattens its sealed segments and tail instead."""
+        return self.corpus
+
+    def store_meta(self, **extra) -> dict:
+        """The store.json payload: codec + construction params (+ extras)."""
+        meta = {"format_version": 1, "codec": self.artifact.codec,
+                "n_strings": self.n_strings,
+                "strings_per_segment": self.segments.strings_per_segment,
+                "cache_bytes": self.cache.capacity_bytes,
+                "batch_size": self.batch_size,
+                "num_buckets": self.num_buckets}
+        meta.update(extra)
+        return meta
+
+    def save(self, dir_path: str) -> None:
+        """Persist dictionary artifact + compressed corpus + store config
+        (and the reverse-lookup indexes built so far) so :meth:`open` serves
+        identical results without retraining."""
+        os.makedirs(dir_path, exist_ok=True)
+        self.artifact.save(os.path.join(dir_path, self._DICT_FILE))
+        self.corpus.save(os.path.join(dir_path, self._CORPUS_FILE))
+        with self._lock:
+            blob = self._dump_index_locked()
+        write_json_atomic(os.path.join(dir_path, self._META_FILE),
+                          self.store_meta())
+        if blob is not None:
+            with open(os.path.join(dir_path, self._INDEX_FILE), "wb") as f:
+                f.write(blob)
+
+    @classmethod
+    def _read_meta(cls, dir_path: str) -> dict:
+        """A saved store's ``store.json``. A store whose segments were demoted
+        to the reference's cold tier (``cold_segments``, ``cold-*.rlz``) is
+        refused: the port has no cold tier yet, and serving it without one
+        would drop those segments' strings."""
+        with open(os.path.join(dir_path, cls._META_FILE)) as f:
+            meta = json.load(f)
+        if meta.get("cold_segments"):
+            raise ValueError(
+                f"{dir_path}: {len(meta['cold_segments'])} segments are in the "
+                "cold tier; tiered stores are not ported yet")
+        return meta
+
+    @classmethod
+    def open_corpus_dir(cls, dir_path: str, source: DictArtifact,
+                        mmap: bool = True, **overrides) -> "CompressedStringStore":
+        """Open a directory holding corpus.rpc + store.json against an
+        already-loaded artifact."""
+        meta = cls._read_meta(dir_path)
+        corpus = CompressedCorpus.load(
+            os.path.join(dir_path, cls._CORPUS_FILE), mmap=mmap)
+        kw = {k: meta[k] for k in cls._STORE_KW}
+        kw.update(overrides)
+        store = cls(source, corpus, **kw)
+        store._load_index(dir_path)
+        return store
+
+    @classmethod
+    def _resolve_current(cls, dir_path: str) -> str:
+        """Follow a versioned directory's ``current.json`` manifest to its
+        current generation subdirectory; a plain flat store directory
+        resolves to itself."""
+        cur = os.path.join(dir_path, cls._CURRENT_FILE)
+        if os.path.exists(cur):
+            with open(cur) as f:
+                return os.path.join(dir_path, json.load(f)["current"])
+        return dir_path
+
+    @classmethod
+    def open(cls, dir_path: str, mmap: bool = True,
+             device: str | torch.device = "cuda",
+             **overrides) -> "CompressedStringStore":
+        """Open a saved store (either package's): map the artifact and
+        corpus, no retraining; the dictionary's tables and the device mirror
+        are built from them as at build. ``overrides`` replace saved
+        construction params. A versioned (writable-store) directory opens
+        read-only at its current generation."""
+        device = resolve_device(device)
+        dir_path = cls._resolve_current(dir_path)
+        artifact = DictArtifact.load(
+            os.path.join(dir_path, cls._DICT_FILE), mmap=mmap)
+        return cls.open_corpus_dir(dir_path, artifact, mmap=mmap, device=device,
+                                   **overrides)
+
     # -------------------------------------------------------------- tail hooks
     # A store may hold strings beyond its sealed segments: the writable
     # subclass (repro_torch.store.mutable) keeps an open tail of appended
@@ -143,6 +299,18 @@ class CompressedStringStore:
         raise IndexError("a read-only store has no tail strings")
 
     def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
+        return []
+
+    def _tail_locate(self, payload: bytes) -> int | None:
+        """Tail-local id of the string whose encoded form is ``payload``.
+        Call under ``self._lock``; the read-only store has no tail."""
+        return None
+
+    def _tail_prefix_hits(self, prefix: bytes,
+                          after: tuple[bytes, int] | None
+                          ) -> list[tuple[bytes, int]]:
+        """Sorted ``(string, gid)`` tail matches of ``prefix`` past the
+        ``after`` cursor. Call under ``self._lock``."""
         return []
 
     # ---------------------------------------------------------------- queries
@@ -258,6 +426,173 @@ class CompressedStringStore:
         if hi > sealed:
             out.extend(self._tail_scan(max(lo, sealed) - sealed, hi - sealed))
         return out
+
+    # ---------------------------------------------------------- reverse lookup
+    #: optimistic encode attempts before locate takes the store lock for the
+    #: whole encode+probe: a compact() swapping the dictionary between the
+    #: query parse and the probe would compare encodings of two generations
+    _MAX_LOCATE_RETRIES = 3
+
+    def locate(self, s: bytes) -> int | None:
+        """Exact-match reverse lookup: the id whose ``get`` returns ``s``.
+
+        The query is encoded once against the store's dictionary (the encode
+        kernel) and compared in *compressed* form. Duplicated strings
+        resolve to their lowest id; absent strings return ``None``.
+        """
+        return self.locate_batch([s])[0]
+
+    def locate_batch(self, strings) -> list[int | None]:
+        """Batched :meth:`locate`; one encode pass, order preserved."""
+        strings = [bytes(s) for s in strings]
+        if not strings:
+            return []
+        t0 = time.perf_counter()
+        out = None
+        for _ in range(self._MAX_LOCATE_RETRIES):
+            version = self.version_id
+            queries = self._encode_queries(strings)
+            with self._lock:
+                if self.version_id == version:
+                    out = self._locate_corpus_locked(queries)
+                    break
+            # compact() swapped generations mid-parse: re-encode and retry
+        if out is None:
+            # retries exhausted: encode under the store lock itself, where no
+            # swap can interleave
+            with self._lock:
+                out = self._locate_corpus_locked(
+                    self._query_encoder().encode(strings))
+        n_hits = sum(1 for r in out if r is not None)
+        self.stats.record_locate(len(strings), n_hits, time.perf_counter() - t0)
+        return out
+
+    def scan_prefix(self, prefix: bytes, limit: int | None = 100,
+                    after: tuple[bytes, int] | None = None
+                    ) -> list[tuple[int, bytes]]:
+        """Strings starting with ``prefix``: ``[(id, string), ...]`` in
+        ``(string, id)`` order.
+
+        Served from the per-segment sorted sidecars (binary search + one
+        independent decode per probed entry, each a launch of the decode
+        kernel unless the cache holds it) merged with a linear filter over
+        the unsealed tail. ``after`` is an exclusive ``(string, id)`` resume
+        cursor for pagination; ``limit=None`` returns every match.
+        """
+        prefix = bytes(prefix)
+        with self._lock:
+            runs: list[list[tuple[bytes, int]]] = []
+            for seg in self.segments.segments:
+                if seg.n_strings == 0:
+                    continue
+                idx = self._segment_index_locked(seg)
+                base = seg.base_id
+                seg_after = ((after[0], after[1] - base)
+                             if after is not None else None)
+                hits = idx.scan_prefix(
+                    prefix, limit,
+                    lambda loc, b=base: self._decode_one_locked(b + loc),
+                    after=seg_after)
+                if hits:
+                    runs.append([(s, base + loc) for loc, s in hits])
+            tail_hits = self._tail_prefix_hits(prefix, after)
+            if tail_hits:
+                runs.append(tail_hits)
+            merged = heapq.merge(*runs)
+            if limit is not None:
+                merged = islice(merged, limit)
+            out = [(gid, s) for s, gid in merged]
+        self.stats.prefix_scans += 1
+        self.stats.scan_strings += len(out)
+        return out
+
+    def _query_encoder(self) -> Encoder:
+        """Encoder for query strings over the store's device tables. The
+        writable store returns its tail encoder instead (the same
+        generation's tables)."""
+        if self._locate_encoder is None:
+            self._locate_encoder = Encoder(self._device.dd,
+                                           device=self._device.device)
+        return self._locate_encoder
+
+    def _encode_queries(self, strings: list[bytes]) -> CompressedCorpus:
+        """The queries in compressed form, current dictionary generation."""
+        return self._query_encoder().encode(strings)
+
+    def _locate_corpus_locked(self, queries: CompressedCorpus) -> list[int | None]:
+        """Probe sealed segments in id order, then the tail: each query's
+        first byte-verified hit is its lowest global id. The queries'
+        fingerprints are taken once, and each segment's table is probed for
+        every query still unanswered at once."""
+        buf = queries.payload.tobytes()
+        off = queries.offsets.tolist()
+        payloads = [buf[a:b] for a, b in zip(off, off[1:])]
+        fps = fingerprints(queries.payload, queries.offsets)
+        out = np.full(len(payloads), -1, dtype=np.int64)
+        pending = np.arange(len(payloads))
+        for seg in self.segments.segments:
+            if not pending.size:
+                break
+            if seg.n_strings == 0:
+                continue
+            idx = self._segment_index_locked(seg)
+            loc = idx.locate_many(fps[pending], [payloads[q] for q in pending],
+                                  seg.payload, seg.offsets)
+            hit = loc >= 0
+            out[pending[hit]] = seg.base_id + loc[hit]
+            pending = pending[~hit]
+        sealed = self.segments.n_strings
+        for q in pending.tolist():
+            loc = self._tail_locate(payloads[q])
+            if loc is not None:
+                out[q] = sealed + loc
+        return [None if v < 0 else v for v in out.tolist()]
+
+    def _segment_index_locked(self, seg) -> SegmentIndex:
+        """The segment's reverse-lookup index, built on first use from its
+        strings read through the stream kernel. The count re-check guards
+        against segment-slot reuse."""
+        idx = self._seg_indexes.get(seg.index)
+        if idx is not None and idx.n == seg.n_strings:
+            return idx
+        raw = self._scan_locked(seg.base_id, seg.base_id + seg.n_strings)
+        idx = SegmentIndex.build(seg.payload, seg.offsets, raw)
+        self._seg_indexes[seg.index] = idx
+        return idx
+
+    def _decode_one_locked(self, gid: int) -> bytes:
+        """One string through the LRU cache (scan_prefix's probe path)."""
+        hit = self.cache.get(gid)
+        if hit is not None:
+            return hit
+        val = self._decode_misses(np.asarray([gid], dtype=np.int64))[0]
+        self.cache.put(gid, val)
+        return val
+
+    def _dump_index_locked(self) -> bytes | None:
+        """Serialised sidecar of every up-to-date segment index, or None
+        when nothing is built (a lazy rebuild is cheaper than a forced
+        decode of segments nobody has located in)."""
+        live: dict[int, tuple[int, SegmentIndex]] = {}
+        for seg in self.segments.segments:
+            idx = self._seg_indexes.get(seg.index)
+            if idx is not None and seg.n_strings and idx.n == seg.n_strings:
+                live[seg.index] = (seg.base_id, idx)
+        return dump_indexes(live) if live else None
+
+    def _load_index(self, dir_path: str) -> None:
+        """Adopt a persisted index sidecar if it matches the live
+        segmentation (position + base id + count); mismatches are dropped
+        per segment and rebuilt lazily."""
+        path = os.path.join(dir_path, self._INDEX_FILE)
+        if not os.path.exists(path):
+            return
+        with open(path, "rb") as f:
+            data = f.read()
+        with self._lock:
+            layout = {seg.index: (seg.base_id, seg.n_strings)
+                      for seg in self.segments.segments if seg.n_strings}
+            self._seg_indexes.update(load_indexes(data, layout))
 
     def stats_snapshot(self) -> dict:
         snap = self.stats.snapshot(self.cache.stats())

@@ -223,9 +223,9 @@ def test_decode_counter_and_spans_reach_obs(port_store, titles):
     assert sum(lat["counts"]) >= 1
 
 
-#: counters of the reference's snapshot that arrive with later slices of the
-#: port (locate / scan_prefix and the cold tier)
-NOT_PORTED_YET = {"cold_lookups", "locates", "locate_hits", "prefix_scans"}
+#: counters of the reference's snapshot that arrive with a later slice of the
+#: port (the cold tier)
+NOT_PORTED_YET = {"cold_lookups"}
 
 
 @pytest.mark.parametrize("cache_bytes", [0, 8 << 20])
