@@ -32,9 +32,18 @@ after:
    the first call's index build), saved again with ``index.npz`` and
    reopened without a rebuild; ``scan_prefix`` against a sorted filter of
    the source (one decode launch per probed string); and a writable store
-   with an unsealed tail saved, opened (here and in a fresh process),
-   appended to and ``compact(dir_path=)``-ed into its next versioned
-   generation.
+   with an unsealed tail and four cold segments saved, opened (here and in
+   a fresh process), appended to and ``compact(dir_path=)``-ed into its
+   next versioned generation, which folds the tier back;
+6. the cold tier: twelve of the read store's segments demoted off-thread
+   (each read through the stream kernel, re-encoded as RLZ on the host and
+   taken off the device mirror), every string read back by multiget (the
+   cold ones from RLZ on the host, the hot ones in one decode launch a
+   call) and by scan (one stream launch per run of hot segments), one
+   segment promoted by a read burst and the rest by ``tier_op``, after
+   which the mirror equals that of a store never tiered on the card; four
+   segments demoted again, saved, and opened here and in a fresh process,
+   then located in and prefix-scanned.
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
@@ -68,6 +77,7 @@ import json
 import os
 import pstats
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -92,6 +102,9 @@ PREFIXES = 20  # scan_prefix prefixes of 1-8 bytes, three paginated to the end
 PREFIX_LIMIT = 100
 WRITABLE_STRINGS = 1 << 18  # the persist phase's writable store, before extend
 WRITABLE_EXTEND = 5_000  # strings appended before the save and after the open
+WRITABLE_COLD = [3, 20, 40, 64]  # its segments demoted before the save
+TIER_COLD = list(range(0, 192, 16))  # the read store's segments demoted off-thread
+TIER_SAVE_COLD = [1, 50, 100, 195]  # demoted again before the tiered save
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
@@ -271,7 +284,7 @@ def main() -> int:
     from repro_torch.data.synth import load_dataset
     from repro_torch.kernels import (_build, crafted, onpair_decode, onpair_encode,
                                      ops, ref)
-    from repro_torch.store import CompressedStringStore, MutableStringStore
+    from repro_torch.store import CompressedStringStore, MutableStringStore, tier_op
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -412,11 +425,22 @@ def main() -> int:
     # -------------------------------------------------------------- 4.3 scan
     tok_off = corpus.offsets // 2  # token start of each string
 
-    def stream_calls(lo: int, hi: int, sealed: int) -> int:
-        """Stream launches of scan(lo, hi): one for its sealed strings and
-        one for its tail strings, each when it holds tokens."""
-        return sum(a < b and tok_off[b] > tok_off[a]
-                   for a, b in ((lo, min(hi, sealed)), (max(lo, sealed), hi)))
+    def stream_calls(lo: int, hi: int, sealed: int, cold=()) -> int:
+        """Stream launches of scan(lo, hi): one per run of hot segments of
+        its sealed strings (segments of STRINGS_PER_SEGMENT; those in
+        ``cold`` decode from RLZ, unlaunched) and one for its tail strings,
+        each when it holds tokens."""
+        runs, a = [], lo
+        while a < min(hi, sealed):
+            k = a // STRINGS_PER_SEGMENT
+            b = min(hi, sealed, (k + 1) * STRINGS_PER_SEGMENT)
+            if k not in cold and runs and runs[-1][1] == a:
+                runs[-1][1] = b
+            elif k not in cold:
+                runs.append([a, b])
+            a = b
+        runs.append([max(lo, sealed), hi])
+        return sum(a < b and tok_off[b] > tok_off[a] for a, b in runs)
 
     counts.start()
     n_seg = store.segments.n_segments
@@ -532,24 +556,36 @@ def main() -> int:
     counts.start()
     payload_sha = hashlib.sha256(corpus.payload).hexdigest()[:16]
 
-    def serve_all(st, want: list[bytes], path: str) -> int:
-        """Every id of ``st`` through shuffled 1,024-id multigets and
-        scan(0, n), each == its source string. Returns the multiget calls
-        that touched the tail (a second decode launch each)."""
-        n = st.n_strings
-        perm = np.random.default_rng(SEED).permutation(n)
-        tail_calls = 0
-        for i in range(0, n, MULTIGET_IDS):
-            ids = perm[i : i + MULTIGET_IDS]
-            check_strings(f"{path} multiget", st.multiget(ids), [want[j] for j in ids])
-            tail_calls += bool((ids >= st.n_sealed).any())
-        check_strings(f"{path} scan(0, n)", st.scan(0, n), want)
-        return tail_calls
+    def hot_calls(id_batches, sealed: int, cold) -> int:
+        """Decode launches of multigets with the cache off: one for a call
+        with a sealed id outside the ``cold`` segments (cold ones decode
+        from RLZ on the host)."""
+        cold = np.asarray(sorted(cold), np.int64)
+        return sum(bool(((ids < sealed) & ~np.isin(ids // STRINGS_PER_SEGMENT, cold)).any())
+                   for ids in map(np.asarray, id_batches))
 
-    def fresh_open(path: str, kind: str, want: list[bytes], payload: str) -> dict:
+    def serve_all(st, want: list[bytes], path: str) -> tuple[int, int, int]:
+        """Every id of ``st`` through shuffled 1,024-id multigets and
+        scan(0, n), each == its source string. Returns the calls' decode
+        launches (one for hot sealed ids, one more for tail ids), those for
+        the tail alone, and scan(0, n)'s stream launches."""
+        n = st.n_strings
+        cold = set(st.tier.cold) if st.tier is not None else set()
+        perm = np.random.default_rng(SEED).permutation(n)
+        calls = [perm[i : i + MULTIGET_IDS] for i in range(0, n, MULTIGET_IDS)]
+        for ids in calls:
+            check_strings(f"{path} multiget", st.multiget(ids), [want[j] for j in ids])
+        tail_calls = sum(bool((ids >= st.n_sealed).any()) for ids in calls)
+        check_strings(f"{path} scan(0, n)", st.scan(0, n), want)
+        return (hot_calls(calls, st.n_sealed, cold) + tail_calls, tail_calls,
+                stream_calls(0, n, st.n_sealed, cold))
+
+    def fresh_open(path: str, kind: str, want: list[bytes], payload: str,
+                   cold=()) -> dict:
         """Open the store saved at ``path`` in a fresh process, which reads
-        every string as ``serve_all`` does; its digests must be the source's
-        and its payload's sha256 prefix ``payload``."""
+        every string as ``serve_all`` does; its digests must be the source's,
+        its payload's sha256 prefix ``payload`` and its cold segments
+        ``cold``."""
         probe = subprocess.run([sys.executable, os.path.abspath(__file__),
                                 "--open-probe", path, kind],
                                capture_output=True, text=True, timeout=600)
@@ -565,6 +601,9 @@ def main() -> int:
         if got["payload_sha256"] != payload:
             raise AssertionError(f"{kind} store opened in a fresh process: payload "
                                  f"sha256 {got['payload_sha256']} != {payload}")
+        if got["cold"] != sorted(cold) or bool(got["cold_lookups"]) != bool(cold):
+            raise AssertionError(f"{kind} store opened in a fresh process: cold "
+                                 f"segments {got['cold']}, expected {sorted(cold)}")
         return got
 
     expect_encode = 0  # encode launches of the phase, recomputed from its inputs
@@ -588,7 +627,7 @@ def main() -> int:
         if opened_sha != payload_sha:
             raise AssertionError(f"opened store: payload sha256 {opened_sha} != "
                                  f"the build's {payload_sha}")
-        serve_all(opened, strings, "opened read store")
+        served_launches, _, served_scans = serve_all(opened, strings, "opened read store")
         rfresh = fresh_open(rdir, "read", strings, payload_sha)
 
         # locate: hits are sampled source strings, misses a sampled string
@@ -735,21 +774,34 @@ def main() -> int:
         w.seal_barrier()
         w_sealed = w.n_sealed
         w_sha = hashlib.sha256(w.snapshot_corpus().payload).hexdigest()[:16]
+        wtier = w.enable_tiering(promote_above=1e9,
+                                 workdir=os.path.join(tmp, "writable-tier"))
+        if any(wtier.demote(si) is None for si in WRITABLE_COLD):
+            raise AssertionError("writable store: a demotion did not happen")
         wdir = os.path.join(tmp, "writable")
         t0 = time.perf_counter()
         w.save(wdir)
         wsave_s = time.perf_counter() - t0
+        wcold = sorted(n for n in os.listdir(os.path.join(wdir, "v0000"))
+                       if n.startswith("cold-"))
+        if wcold != [f"cold-{si:04d}.rlz" for si in WRITABLE_COLD]:
+            raise AssertionError(f"writable store: saved cold files {wcold}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         w2 = MutableStringStore.open(wdir, device=dev)
         torch.cuda.synchronize()
         wopen_s = time.perf_counter() - t0
         if (w2.n_sealed, w2.n_strings) != (w_sealed, wn + wx) or \
-                w2.drift.snapshot() != w.drift.snapshot():
-            raise AssertionError("writable store: the open lost its tail or drift window")
+                w2.drift.snapshot() != w.drift.snapshot() or \
+                sorted(w2.tier.cold) != WRITABLE_COLD:
+            raise AssertionError("writable store: the open lost its tail, drift "
+                                 "window or cold segments")
         del w
-        w_tail_calls = serve_all(w2, strings[: wn + wx], "opened writable store")
-        wfresh = fresh_open(wdir, "writable", strings[: wn + wx], w_sha)
+        launched, w_tail_calls, scanned_ = serve_all(w2, strings[: wn + wx],
+                                                     "opened writable store")
+        served_launches += launched
+        served_scans += scanned_
+        wfresh = fresh_open(wdir, "writable", strings[: wn + wx], w_sha, WRITABLE_COLD)
         ids = w2.extend(strings[wn + wx : wn + 2 * wx])
         expect_encode += encode_calls(strings[wn + wx : wn + 2 * wx])
         w2.seal_barrier()
@@ -760,32 +812,39 @@ def main() -> int:
             raise AssertionError("writable store: appends after the open sealed off "
                                  "the segment boundaries")
         w2_sealed = w2.n_sealed
+        compact_scans = sum(
+            stream_calls(lo, min(lo + STRINGS_PER_SEGMENT, n0), w2_sealed, WRITABLE_COLD)
+            for lo in range(0, n0, STRINGS_PER_SEGMENT))
         wrep = w2.compact(dir_path=wdir)
         expect_encode += encode_calls(strings[:n0])
         if wrep["dir"] != wdir or sorted(os.listdir(wdir)) != ["current.json", "v0001"]:
             raise AssertionError(f"compact(dir_path=): {wrep}, {sorted(os.listdir(wdir))}")
+        if w2.tier.cold:
+            raise AssertionError("compact(dir_path=) left cold segments")
         del w2
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         w3 = MutableStringStore.open(wdir, device=dev)
         torch.cuda.synchronize()
         wopen2_s = time.perf_counter() - t0
-        if w3.version_id != 1:
-            raise AssertionError("the compacted generation did not open as v0001")
-        w_tail_calls += serve_all(w3, strings[:n0], "compacted writable store")
+        if w3.version_id != 1 or w3.tier is not None:
+            raise AssertionError("the compacted generation did not open as v0001, "
+                                 "untiered")
+        launched, tail_calls_, scanned_ = serve_all(w3, strings[:n0],
+                                                    "compacted writable store")
+        served_launches += launched
+        served_scans += scanned_
+        w_tail_calls += tail_calls_
         del w3
 
     persist = counts.end("persist", ["encode_batch", "decode_compact", "decode_tokens"])
     served = n_all + (wn + wx) + n0
-    expect_pd = sum(-(-n // MULTIGET_IDS) for n in (n_all, wn + wx, n0)) + \
-        w_tail_calls + prefix_launches
-    # scans: the opened store's (1), the index build (a launch a segment),
-    # the opened writable store's (sealed and tail), compact()'s chunks, the
-    # compacted store's
-    expect_ps = stream_calls(0, n_all, n_all) + n_seg + stream_calls(
-        0, wn + wx, w_sealed) + sum(
-        stream_calls(lo, min(lo + STRINGS_PER_SEGMENT, n0), w2_sealed)
-        for lo in range(0, n0, STRINGS_PER_SEGMENT)) + stream_calls(0, n0, n0)
+    expect_pd = served_launches + prefix_launches
+    # scans: the three served stores' scan(0, n) (the opened writable one's
+    # split at its cold segments), the index build (a launch a segment), the
+    # writable store's demotions (one read each), compact()'s chunks (none
+    # for a cold segment's)
+    expect_ps = served_scans + n_seg + len(WRITABLE_COLD) + compact_scans
     if (persist["decode_compact"], persist["decode_tokens"], persist["encode_batch"]) \
             != (expect_pd, expect_ps, expect_encode):
         raise AssertionError(
@@ -824,17 +883,242 @@ def main() -> int:
         f"s, open {open2_s:.3f} s")
     log("persist", f"[{card}] writable store ({wn} strings + {wx} appended, "
         f"{wn + wx - w_sealed} in the tail): save {wsave_s:.3f} s, open {wopen_s:.3f} s, "
-        f"open in a fresh process {wfresh['open_s']:.3f} s; {wx} more appended after "
+        f"open in a fresh process {wfresh['open_s']:.3f} s (segments {WRITABLE_COLD} "
+        f"cold, from their RLZ files); {wx} more appended after "
         f"the open seal on the {STRINGS_PER_SEGMENT}-string boundaries; "
         f"compact(dir_path=) total_s {wrep['total_s']} (train_s {wrep['train_s']}), "
         f"ratio before {wrep['ratio_before']}, after {wrep['ratio_after']}; v0001 "
-        f"written, v0000 pruned; opened again in {wopen2_s:.3f} s; {served} strings "
-        "served == the source")
+        f"written without cold files, v0000 pruned; opened again in {wopen2_s:.3f} s; "
+        f"{served} strings served == the source")
+
+    # ---------------------------------------------------------- 4.6 the tier
+    # TIER_COLD demoted off-thread, as users run it (each demotion reads its
+    # segment through the stream kernel and takes its tokens off the mirror);
+    # every string read back; promotion by a read burst and by tier_op; four
+    # segments demoted again, saved, and opened here and in a fresh process
+    counts.start()
+    t_phase = time.perf_counter()
+    spc = STRINGS_PER_SEGMENT
+    res = store.resident
+    mem0, dev0, pay0 = store.memory_bytes, store.resident_device_bytes, res.n_bytes
+    tdir = tempfile.mkdtemp(prefix="chip-smoke-tier-")  # demotions, then the save
+    tier = store.enable_tiering(promote_above=1e9, workdir=os.path.join(tdir, "work"))
+    reports = []
+    demote = tier.demote
+
+    def demote_and_report(si):  # the worker drops what demote returns
+        reports.append(demote(si))
+        return reports[-1]
+
+    tier.demote = demote_and_report
+    t0 = time.perf_counter()
+    for si in TIER_COLD:
+        tier.schedule_demote(si)
+    tier.join()
+    demote_wall = time.perf_counter() - t0
+    tier.demote = demote
+    if sorted(tier.cold) != TIER_COLD or len(reports) != len(TIER_COLD) \
+            or None in reports:
+        raise AssertionError(f"tier: {sorted(tier.cold)} cold after join(), "
+                             f"{len(TIER_COLD)} scheduled: {TIER_COLD}")
+    cold_set = set(TIER_COLD)
+    seg_ids = np.arange(n_all) // spc
+    cold_ids = np.flatnonzero(np.isin(seg_ids, TIER_COLD))
+    hot_ids = np.flatnonzero(~np.isin(seg_ids, TIER_COLD))
+    cold_payload = sum(store.segments.segments[si].payload_bytes for si in TIER_COLD)
+    mem1, dev1, pay1 = store.memory_bytes, store.resident_device_bytes, res.n_bytes
+    if pay0 - pay1 != cold_payload or mem0 - mem1 != cold_payload + sum(
+            store.segments.segments[si].offsets.nbytes for si in TIER_COLD):
+        raise AssertionError(f"tier: the mirror's payload fell by {pay0 - pay1} B and "
+                             f"memory_bytes by {mem0 - mem1} B; the cold segments "
+                             f"hold {cold_payload} B of payload")
+
+    # every id: the read path's shuffled batches, then cold ids only and as
+    # many calls of hot ids only; each call with a hot id is one launch
+    before_dc = onpair_decode.decode_compact.launches
+    lookups0 = store.stats.cold_lookups
+    t0 = time.perf_counter()
+    answers = [store.multiget(ids) for ids in batches]
+    mixed_s = time.perf_counter() - t0
+    for ids, got in zip(batches, answers):
+        check_strings("tiered multiget", got, [strings[i] for i in ids])
+    sweep_launches = onpair_decode.decode_compact.launches - before_dc
+    if sweep_launches != hot_calls(batches, n_all, cold_set) or \
+            store.stats.cold_lookups - lookups0 != cold_ids.size:
+        raise AssertionError(f"tier: the sweep made {sweep_launches} decode launches "
+                             f"and {store.stats.cold_lookups - lookups0} cold lookups, "
+                             f"expected {hot_calls(batches, n_all, cold_set)} and "
+                             f"{cold_ids.size}")
+    rng = np.random.default_rng(SEED + 6)
+    cold_batches = [b for b in np.array_split(rng.permutation(cold_ids),
+                                              -(-cold_ids.size // MULTIGET_IDS))]
+    hot_batches = [rng.choice(hot_ids, MULTIGET_IDS, replace=False)
+                   for _ in cold_batches]
+    rates = {}
+    for label, id_batches in (("cold", cold_batches), ("hot", hot_batches)):
+        before = onpair_decode.decode_compact.launches
+        t0 = time.perf_counter()
+        answers = [store.multiget(ids) for ids in id_batches]
+        rates[label] = sum(map(len, id_batches)) / (time.perf_counter() - t0)
+        for ids, got in zip(id_batches, answers):
+            check_strings(f"{label}-only multiget", got, [strings[i] for i in ids])
+        if onpair_decode.decode_compact.launches - before != (
+                len(id_batches) if label == "hot" else 0):
+            raise AssertionError(f"tier: {label}-only multigets made "
+                                 f"{onpair_decode.decode_compact.launches - before} "
+                                 "decode launches")
+    del answers
+    tier_cold_lookups = store.stats.cold_lookups - lookups0
+
+    # scans: a stream launch per run of hot segments, none for a cold one
+    before_dt = onpair_decode.decode_tokens.launches
+    t0 = time.perf_counter()
+    scanned = []
+    for lo in range(0, n_all, spc):
+        scanned.extend(store.scan(lo, min(lo + spc, n_all)))
+    tier_seg_scan_s = time.perf_counter() - t0
+    check_strings("tiered scan, segment-sized ranges", scanned, strings)
+    seg_scan_launches = onpair_decode.decode_tokens.launches - before_dt
+    before_dt = onpair_decode.decode_tokens.launches
+    t0 = time.perf_counter()
+    scanned = store.scan(0, n_all)
+    tier_scan_all_s = time.perf_counter() - t0
+    check_strings("tiered scan(0, n)", scanned, strings)
+    del scanned
+    scan_all_launches = onpair_decode.decode_tokens.launches - before_dt
+    expect_seg_scans = sum(stream_calls(lo, min(lo + spc, n_all), n_all, cold_set)
+                           for lo in range(0, n_all, spc))
+    if (seg_scan_launches, scan_all_launches) != (
+            expect_seg_scans, stream_calls(0, n_all, n_all, cold_set)):
+        raise AssertionError(f"tier: {seg_scan_launches} stream launches for the "
+                             f"segment-sized scans, {scan_all_launches} for scan(0, n); "
+                             f"expected {expect_seg_scans} and "
+                             f"{stream_calls(0, n_all, n_all, cold_set)}")
+
+    # a read burst on one cold segment (over the default promote_above)
+    # promotes it; tier_op promotes the rest; the mirror is then the one of
+    # the opened store, never tiered, byte for byte on the card
+    tier.promote_above = 1.0
+    burst = np.arange(TIER_COLD[0] * spc, (TIER_COLD[0] + 1) * spc)
+    for ids in np.array_split(burst, spc // MULTIGET_IDS):
+        check_strings("read-burst multiget", store.multiget(ids),
+                      [strings[i] for i in ids])
+    tier.promote_above = 1e9
+    if sorted(tier.cold) != TIER_COLD[1:] or tier.promotions != 1:
+        raise AssertionError(f"tier: the read burst left {sorted(tier.cold)} cold")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    promoted = tier_op(store, "promote")["promoted"]
+    torch.cuda.synchronize()
+    promote_s = (time.perf_counter() - t0) / max(1, len(promoted))
+
+    def same_mirror(a, b) -> bool:
+        (ta, sa), (tb, sb) = a.resident.on_device(), b.resident.on_device()
+        return (torch.equal(ta.view(torch.uint8), tb.view(torch.uint8))
+                and torch.equal(sa, sb)
+                and a.resident_device_bytes == b.resident_device_bytes)
+
+    if promoted != TIER_COLD[1:] or tier.cold or not same_mirror(store, opened) \
+            or store.memory_bytes != mem0:
+        raise AssertionError("tier: after promoting every segment the mirror or "
+                             "memory_bytes differs from a store never tiered")
+
+    # four segments demoted again and saved; the save opened here (served,
+    # located in, prefix-scanned) and in a fresh process
+    save_reports = [tier.demote(si) for si in TIER_SAVE_COLD]
+    if None in save_reports:
+        raise AssertionError("tier: a demotion before the save did not happen")
+    sdir = os.path.join(tdir, "saved")
+    store.save(sdir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiered = CompressedStringStore.open(sdir, device=dev)
+    torch.cuda.synchronize()
+    tier_open_s = time.perf_counter() - t0
+    if sorted(tiered.tier.cold) != TIER_SAVE_COLD:
+        raise AssertionError(f"tier: the save opened with {sorted(tiered.tier.cold)} cold")
+    tier_served, _, tier_served_scans = serve_all(tiered, strings, "opened tiered store")
+    tfresh = fresh_open(sdir, "read", strings, payload_sha, TIER_SAVE_COLD)
+    # hits in the cold segments and anywhere, and absent strings (so every
+    # segment's index is built and probed)
+    loc_q = [strings[i] for i in np.concatenate([
+        rng.choice(np.flatnonzero(np.isin(seg_ids, TIER_SAVE_COLD)), 512),
+        rng.integers(0, n_all, 504)])] + miss_q[:8]
+    t0 = time.perf_counter()
+    located = tiered.locate_batch(loc_q)
+    tier_locate_s = time.perf_counter() - t0
+    if located != [first_id.get(q) for q in loc_q]:
+        raise AssertionError("tier: locate on the tiered store missed the lowest id")
+    tier_prefix = prefixes[7]
+    before_dc = onpair_decode.decode_compact.launches
+    t0 = time.perf_counter()
+    got = tiered.scan_prefix(tier_prefix, limit=PREFIX_LIMIT)
+    tier_prefix_s = time.perf_counter() - t0
+    tier_prefix_launches = onpair_decode.decode_compact.launches - before_dc
+    want_prefix = sorted((s_, i) for i, s_ in enumerate(strings)
+                         if s_.startswith(tier_prefix))[:PREFIX_LIMIT]
+    if got != [(i, s_) for s_, i in want_prefix]:
+        raise AssertionError(f"tier: scan_prefix({tier_prefix!r}) on the tiered store "
+                             "differs from a sorted filter of the source")
+    tier_op(store, "promote")
+    store.tier = None  # the profiled windows below read it as the earlier phases did
+    if not same_mirror(store, opened):
+        raise AssertionError("tier: the mirror differs after the second promotion")
+    tier_wall = time.perf_counter() - t_phase
+    tiered_path = counts.end("tier", ["decode_compact", "decode_tokens", "encode_batch"])
+    # launches: the demotions' reads (one each), the scans, the opened
+    # store's scan(0, n) and index build (none for a cold segment)
+    expect_tier = {
+        "decode_compact": sweep_launches + len(hot_batches) + len(burst) // MULTIGET_IDS
+        + tier_served + tier_prefix_launches,
+        "decode_tokens": len(TIER_COLD) + expect_seg_scans
+        + stream_calls(0, n_all, n_all, cold_set) + len(TIER_SAVE_COLD)
+        + tier_served_scans + n_seg - len(TIER_SAVE_COLD),
+        "encode_batch": encode_calls(loc_q)}
+    if tiered_path != expect_tier:
+        raise AssertionError(f"tier: launches {tiered_path}, expected {expect_tier}")
+    demos = reports + save_reports
+    split = {k: np.mean([r[k] for r in demos])
+             for k in ("read_s", "factorize_s", "write_s", "adopt_s")}
+    rlz_b, pay_b = sum(r["rlz_bytes"] for r in demos), sum(r["payload_bytes"] for r in demos)
+    log("tier", f"[{card}] {len(TIER_COLD)} segments demoted off-thread in "
+        f"{demote_wall:.3f} s, then {len(TIER_SAVE_COLD)} more; seconds a demotion "
+        f"(mean of {len(demos)}): stream read {split['read_s']:.4f}, factorization "
+        f"{split['factorize_s']:.3f}, container write {split['write_s']:.4f}, "
+        f"adoption with the eviction {split['adopt_s']:.4f}; rlz_bytes {rlz_b} B "
+        f"against payload_bytes {pay_b} B ({sum(r['raw_bytes'] for r in demos)} B "
+        "raw)")
+    log("tier", f"[{card}] with {len(TIER_COLD)} cold: memory_bytes {mem0} -> {mem1}, "
+        f"resident_device_bytes {dev0} -> {dev1}, mirror payload {pay0} -> {pay1} B "
+        f"(fell by the cold segments' {cold_payload} B)")
+    log("tier", f"[{card}] multiget, every id in the read path's {len(batches)} "
+        f"shuffled calls: {n_all / mixed_s:.1f} lookups/s ({sweep_launches} decode "
+        f"launches, {cold_ids.size} cold lookups); {len(cold_batches)} calls of cold "
+        f"ids only {rates['cold']:.1f} lookups/s (0 launches); as many of hot ids only "
+        f"{rates['hot']:.1f} lookups/s; cold_lookups {tier_cold_lookups}")
+    log("tier", f"[{card}] scan with {len(TIER_COLD)} cold: segment-sized ranges "
+        f"{throughput_mib_s(raw_bytes, tier_seg_scan_s):.1f} MiB/s ({seg_scan_launches} "
+        f"stream launches); scan(0, n) {throughput_mib_s(raw_bytes, tier_scan_all_s):.1f} "
+        f"MiB/s ({scan_all_launches} stream launches, one per hot run)")
+    log("tier", f"[{card}] promotion: a read burst promoted segment {TIER_COLD[0]}; "
+        f"tier_op promoted {len(promoted)} more at {promote_s:.4f} s each; the mirror "
+        "then == the never-tiered opened store's on the card (payload, starts, "
+        "device bytes), and memory_bytes as before")
+    log("tier", f"[{card}] tiered save (segments {TIER_SAVE_COLD} cold) opened in "
+        f"{tier_open_s:.3f} s here, {tfresh['open_s']:.3f} s in a fresh process; every "
+        f"id served == the source in both; {len(loc_q)} locates {tier_locate_s:.3f} s "
+        f"(index build included), every answer the lowest id; scan_prefix("
+        f"{tier_prefix!r}) {tier_prefix_s * 1e3:.1f} ms, {tier_prefix_launches} decode "
+        f"launches; the phase's wall {tier_wall:.1f} s")
 
     # ------------------------------------------- 5. device share of each path
     # a window of each path, driven as above but under torch.profiler (after
     # the counts were read): kernel device time over the window's wall
     encoder = Encoder(dictionary, device=dev)
+    tiered_cold_ids = np.random.default_rng(SEED + 7).permutation(
+        np.flatnonzero(np.isin(seg_ids, TIER_SAVE_COLD)))
+    tiered_cold_batches = np.array_split(
+        tiered_cold_ids, -(-tiered_cold_ids.size // MULTIGET_IDS))
     wwin = MutableStringStore(dictionary, corpus, device=dev, config=config,
                               strings_per_segment=STRINGS_PER_SEGMENT,
                               cache_bytes=0)
@@ -857,6 +1141,8 @@ def main() -> int:
                      for i in range(0, 10 * MULTIGET_IDS, MULTIGET_IDS)]),
         "scan_prefix": device_window(
             lambda: opened.scan_prefix(prefixes[7], limit=PREFIX_LIMIT)),
+        "cold multiget": device_window(
+            lambda: [tiered.multiget(ids) for ids in tiered_cold_batches]),
     }
     path_ms: dict[str, dict[str, float]] = {}
     for path, (wall, acts) in windows.items():
@@ -909,7 +1195,12 @@ def main() -> int:
     log("host", f"[{card}] scan_prefix({prefixes[7]!r}, limit={PREFIX_LIMIT}) on the "
         "opened store under cProfile: " + host_profile(
             lambda: opened.scan_prefix(prefixes[7], limit=PREFIX_LIMIT), top=12))
-    del opened
+    log("host", f"[{card}] {len(tiered_cold_batches)} multiget calls of cold ids only "
+        f"(segments {TIER_SAVE_COLD} of the opened tiered store) under cProfile: "
+        + host_profile(lambda: [tiered.multiget(ids) for ids in tiered_cold_batches],
+                       top=12))
+    del opened, tiered
+    shutil.rmtree(tdir, ignore_errors=True)
     del wwin
 
     # ---------------------------------------------------- 6. kernel parity
@@ -1154,14 +1445,15 @@ def main() -> int:
         rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
                   "a real 1,024-id multiget"),
         rows_bytes(row_tokens(ids), ids.size, True, int(mirror_off(ids)[-1])),
-        counts.total["decode_compact"] - tail_launches - w_tail_calls - prefix_launches)
+        counts.total["decode_compact"] - tail_launches - w_tail_calls - prefix_launches
+        - tier_prefix_launches)
     # a scan_prefix probe decodes one string of the mirror a launch
     ids = np.asarray(order[:1])
     rows_inputs["a 1-id scan_prefix probe from the mirror (uint16)"] = (
         rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
                   "a scan_prefix probe's one row"),
         rows_bytes(row_tokens(ids), 1, True, int(mirror_off(ids)[-1])),
-        prefix_launches)
+        prefix_launches + tier_prefix_launches)
     ids = order[: ops._DECODE_MAX_ROWS]
     rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
               f"a full launch of {ids.size} mirror rows")
@@ -1489,7 +1781,8 @@ def open_probe(path: str, kind: str) -> int:
     process, start CUDA and load the kernels, then time the open of the
     store saved in DIR and read every string back by shuffled 1,024-id
     multigets and by scan(0, n); print the seconds, the digests of both
-    reads (in id order) and the payload's sha256 prefix as one JSON line."""
+    reads (in id order), the payload's sha256 prefix, the cold segments and
+    the cold lookups as one JSON line."""
     if not torch.cuda.is_available():
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1517,7 +1810,9 @@ def open_probe(path: str, kind: str) -> int:
     scanned = st.scan(0, n)
     print(json.dumps({"init_s": init_s, "open_s": open_s, "multiget": digest(got),
                       "scan": digest(scanned), "payload_sha256": hashlib.sha256(
-                          st.snapshot_corpus().payload).hexdigest()[:16]}), flush=True)
+                          st.snapshot_corpus().payload).hexdigest()[:16],
+                      "cold": sorted(st.tier.cold) if st.tier is not None else [],
+                      "cold_lookups": st.stats.cold_lookups}), flush=True)
     return 0
 
 

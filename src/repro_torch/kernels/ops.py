@@ -127,6 +127,7 @@ class OnPairDevice:
         #: the entry lengths on the host, which size a decode's output
         #: before its launch
         self.host_lens = self.dd.lens.cpu().numpy().astype(np.int64)
+        self._blob: np.ndarray | None = None  # see blob
         #: the entry lengths as uint8 (OnPair16's are at most 16) for the
         #: stream kernel: 64 KiB, which its gathers find in L1
         self.lens8 = self.dd.lens.to(torch.uint8)
@@ -155,6 +156,18 @@ class OnPairDevice:
             return self.dictionary.resident_bytes
         return (self.dd.nbytes + int(self.dd.lens.sum())
                 + 4 * (self.dd.num_entries + 1))
+
+    @property
+    def blob(self) -> np.ndarray:
+        """The dictionary's entries back to back in id order (u8, on the
+        host), the reference's ``PackedDictionary.blob``: the host
+        dictionary's own, or built once from bare device tables."""
+        if self._blob is None:
+            d = self.dictionary
+            self._blob = (np.asarray(d.blob, dtype=np.uint8) if d is not None
+                          else np.frombuffer(b"".join(self.dd.entries()),
+                                             dtype=np.uint8))
+        return self._blob
 
     # ----------------------------------------------------------- encode
     def _encode_cap(self, n: int) -> int:

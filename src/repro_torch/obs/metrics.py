@@ -1,4 +1,4 @@
-"""Process-wide serving metrics: counters and bucketed latency histograms.
+"""Process-wide serving metrics: counters, gauges and bucketed latency histograms.
 
 One :class:`MetricsRegistry` per process (module-level ``REGISTRY``) collects
 every serving-layer metric under one naming scheme
@@ -56,6 +56,22 @@ class Counter(_Instrument):
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self.value += n
+
+    def state(self) -> dict:
+        return {"value": self.value}
+
+
+class Gauge(_Instrument):
+    """Point-in-time value (resident bytes of a tier, queue depth)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, labels: dict | None = None):
+        super().__init__(name, labels)
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
 
     def state(self) -> dict:
         return {"value": self.value}
@@ -138,6 +154,29 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._instruments: list[_Instrument] = []
+        self._shared: dict[tuple, _Instrument] = {}
+
+    def _get_or_create(self, cls, name: str, labels: dict | None, **kw):
+        """The registry's one instrument of ``name`` and ``labels``, made on
+        first use; the same identity as another kind raises TypeError."""
+        key = (name, _check_labels(labels))
+        with self._lock:
+            inst = self._shared.get(key)
+            if inst is None:
+                inst = cls(name, labels, **kw)
+                self._shared[key] = inst
+                self._instruments.append(inst)
+            elif not isinstance(inst, cls):
+                raise TypeError(f"metric {name!r}{dict(key[1])} already "
+                                f"registered as {inst.kind}")
+            return inst
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get_or_create(Gauge, name, labels)
+
+    def histogram(self, name: str, bounds: tuple[float, ...] | None = None,
+                  **labels) -> Histogram:
+        return self._get_or_create(Histogram, name, labels, bounds=bounds)
 
     def register(self, instrument: _Instrument) -> _Instrument:
         with self._lock:
@@ -146,7 +185,7 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """JSON-safe dump, one entry per ``(kind, name, labels)`` series:
-        counters sum, histograms add their bucket counts."""
+        counters and gauges sum, histograms add their bucket counts."""
         with self._lock:
             instruments = list(self._instruments)
         series: dict[tuple, dict] = {}

@@ -28,8 +28,10 @@ either package opens::
     <dir>/v0000/           one flat store layout per dictionary generation
         dictionary.rpa       (the artifact, with the training config)
         corpus.rpc           (sealed segments + unsealed tail strings)
-        store.json           (construction params + n_tail + drift state)
+        store.json           (construction params + n_tail + drift state
+                              + the cold set, when segments are demoted)
         index.npz            (reverse-lookup indexes, once anyone located)
+        cold-NNNN.rlz        (the cold tier's demoted segments)
     <dir>/v0001/           written by compact(); the manifest swap is atomic
 
 ``open()`` also accepts a plain read-only store directory (no manifest).
@@ -344,10 +346,12 @@ class MutableStringStore(CompressedStringStore):
     def _seal_worker(self) -> None:
         """Drain the tail below the seal boundary, one segment a round. Each
         round snapshots the first ``spc`` payloads under the lock, builds
-        the segment (and, once anyone has located, decodes its strings for
-        the index, on the device captured with the snapshot) off the lock,
-        and commits only if neither a compaction (version_id) nor another
-        seal (_tail_gen) changed the tail since."""
+        the segment off the lock, and commits only if neither a compaction
+        (version_id) nor another seal (_tail_gen) changed the tail since.
+        Once anyone has located, the commit also decodes the segment's
+        strings for its index, under the lock: every stream launch of the
+        seal and demotion workers holds it, so one launch at a time uses the
+        stream kernel's scratch and launch counts."""
         while True:
             with self._lock:
                 spc = self.segments.strings_per_segment
@@ -358,14 +362,13 @@ class MutableStringStore(CompressedStringStore):
                 version, gen = self.version_id, self._tail_gen
                 parts = self._tail[:spc]
                 raw_lens = self._tail_raw[:spc]
-                need_raw = bool(self._seg_indexes) or self._tail_map is not None
-                device = self._device
             payload, offsets = self._build_segment(parts)
-            raw = (self._decode_payloads(device, parts, raw_lens)
-                   if need_raw else None)
             with self._lock:
                 if self.version_id != version or self._tail_gen != gen:
                     continue  # the snapshot went stale: start the round again
+                need_raw = bool(self._seg_indexes) or self._tail_map is not None
+                raw = (self._decode_payloads(self._device, parts, raw_lens)
+                       if need_raw else None)
                 self._commit_seal_locked(spc, payload, offsets, sum(raw_lens),
                                          raw)
 
@@ -376,8 +379,8 @@ class MutableStringStore(CompressedStringStore):
         every live string through the encode kernel, and swap the store's
         state under its lock.
 
-        The live strings are read back through ``scan`` (the stream kernel)
-        in per-segment lock windows; training, the table upload and the bulk
+        The live strings are read back through ``scan`` (the stream kernel;
+        cold segments from RLZ) in per-segment lock windows; training, the table upload and the bulk
         re-encode run outside the lock, so reads and appends keep being
         served from the old state. Strings appended meanwhile are re-parsed
         against the new dictionary during the locked swap. When the store is
@@ -483,6 +486,10 @@ class MutableStringStore(CompressedStringStore):
         # caller re-files any delta beyond the corpus
         self.cache.clear()
         self.drift.reset(corpus.ratio if corpus.compressed_bytes else None)
+        if self.tier is not None:
+            # the rewrite folded every cold segment back into the new, hot
+            # generation, and the mirror above holds every segment
+            self.tier.clear_locked()
         self._tail_gen += 1   # in-flight seal snapshots are now stale
         self.version_id += 1
 
@@ -544,7 +551,8 @@ class MutableStringStore(CompressedStringStore):
                 drift_raw_bytes=self.drift.raw_bytes,
                 drift_compressed_bytes=self.drift.compressed_bytes,
                 drift_observations=self.drift.observations,
-                drift_threshold=self.drift.threshold)
+                drift_threshold=self.drift.threshold,
+                **self._tier_meta_locked())
             manifest = {"format_version": 1, "current": vname,
                         "codec": artifact.codec, "n_strings": self.n_strings,
                         "compactions": self.compactions}
@@ -561,12 +569,19 @@ class MutableStringStore(CompressedStringStore):
         if index_blob is not None:
             with open(os.path.join(sub, self._INDEX_FILE), "wb") as f:
                 f.write(index_blob)
+        if meta.get("cold_segments"):
+            # the cold containers are immutable once written, so copying
+            # them after the snapshot's lock dropped cannot tear
+            self.tier.copy_cold_files(meta["cold_segments"], sub)
         write_json_atomic(os.path.join(dir_path, self._CURRENT_FILE), manifest)
         # upgrading a plain (flat) store directory to the versioned layout:
         # drop the superseded flat files, so a reader never finds two
         # generations that disagree in one directory
-        for name in (self._DICT_FILE, self._CORPUS_FILE, self._META_FILE,
-                     self._INDEX_FILE):
+        stale_names = [self._DICT_FILE, self._CORPUS_FILE, self._META_FILE,
+                       self._INDEX_FILE]
+        stale_names += [n for n in os.listdir(dir_path)
+                        if n.startswith("cold-") and n.endswith(".rlz")]
+        for name in stale_names:
             stale = os.path.join(dir_path, name)
             if os.path.exists(stale):
                 os.remove(stale)
@@ -611,6 +626,7 @@ class MutableStringStore(CompressedStringStore):
             store.drift.observations = int(meta["drift_observations"])
         store.version_id = int(meta.get("version_id", 0))
         store._load_index(sub)
+        store._attach_tier(sub, meta)
         store._dir = dir_path
         store._dirty = False  # the tail's restore is not an unsaved append
         return store

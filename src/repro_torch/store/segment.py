@@ -4,13 +4,15 @@ A :class:`SegmentedCorpus` splits one :class:`~repro_torch.core.api.CompressedCo
 into fixed-size segments of consecutive strings. Each segment carries a
 zero-copy payload view plus *segment-local* byte offsets; the writable
 store seals appended tails into segments of their own, so segments may
-differ in size. (Point lookups and scans read the device mirror,
-:mod:`repro_torch.store.resident`.)
+differ in size, and global ids route to ``(segment, local)`` by bisecting
+the segments' base ids. (Point lookups and scans read the device mirror,
+:mod:`repro_torch.store.resident`; the cold tier routes by segment.)
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import bisect
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -53,6 +55,10 @@ class SegmentedCorpus:
     strings_per_segment: int
     n_strings: int
     raw_bytes: int
+    _base_ids: list[int] = field(default_factory=list, repr=False)
+
+    def __post_init__(self) -> None:
+        self._base_ids = [s.base_id for s in self.segments]
 
     @classmethod
     def from_corpus(cls, corpus: CompressedCorpus,
@@ -83,9 +89,30 @@ class SegmentedCorpus:
                       payload=np.asarray(payload, dtype=np.uint8),
                       offsets=np.asarray(offsets, dtype=np.int64))
         self.segments.append(seg)
+        self._base_ids.append(seg.base_id)
         self.n_strings += seg.n_strings
         self.raw_bytes += int(raw_bytes)
         return seg
+
+    def route(self, gid: int) -> tuple[Segment, int]:
+        """Global string id -> (segment, local id). Raises IndexError when
+        out of range, negative ids included."""
+        if not 0 <= gid < self.n_strings:
+            raise IndexError(
+                f"string id {gid} out of range [0, {self.n_strings})")
+        seg = self.segments[bisect.bisect_right(self._base_ids, gid) - 1]
+        return seg, gid - seg.base_id
+
+    def overlapping(self, lo: int, hi: int):
+        """Segments covering any id in [lo, hi), found by bisect: a narrow
+        range touches only the segments it covers."""
+        if lo >= hi:
+            return
+        k = max(0, bisect.bisect_right(self._base_ids, lo) - 1)
+        for seg in self.segments[k:]:
+            if seg.base_id >= hi:
+                break
+            yield seg
 
     def token_counts(self) -> np.ndarray:
         """Tokens per string over the whole corpus, in global id order."""

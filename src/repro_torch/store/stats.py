@@ -23,6 +23,7 @@ class StoreStats:
         self.padded_rows = 0
         self.decode_seconds = 0.0
         self.scan_strings = 0       # strings returned by scan()
+        self.cold_lookups = 0       # misses decoded from the RLZ cold tier
         self.locates = 0            # reverse lookups (queries, incl. misses)
         self.locate_hits = 0        # reverse lookups that found an id
         self.prefix_scans = 0       # scan_prefix calls
@@ -69,6 +70,7 @@ class StoreStats:
             "decoded_strings": self.decoded_strings,
             "decoded_bytes": self.decoded_bytes,
             "scan_strings": self.scan_strings,
+            "cold_lookups": self.cold_lookups,
             "locates": self.locates,
             "locate_hits": self.locate_hits,
             "prefix_scans": self.prefix_scans,

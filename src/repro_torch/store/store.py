@@ -26,9 +26,15 @@ the encode kernel and compare in compressed form.
 
 Persistence (``save``/``open``): the reference's directory layout and
 bytes (``dictionary.rpa``, ``corpus.rpc``, ``store.json`` and the optional
-``index.npz``), so a store saved by either package opens in the other. The
-device mirror is not saved: ``open`` rebuilds it from the corpus, as a
-build does.
+``index.npz`` and ``cold-NNNN.rlz``), so a store saved by either package
+opens in the other. The device mirror is not saved: ``open`` rebuilds it
+from the corpus, as a build does, and takes the cold segments back off it.
+
+Tiering (``enable_tiering``, :mod:`repro_torch.store.tier`): a demoted
+segment's strings leave the device mirror and are served from RLZ factors
+on the host; multiget splits its misses into cold and hot first (the hot
+ones keep their one launch), and scan splits its range at cold segments
+(one stream call per hot run).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from repro_torch.store.cache import LRUCache
 from repro_torch.store.resident import ResidentSegments
 from repro_torch.store.segment import SegmentedCorpus
 from repro_torch.store.stats import StoreStats
+from repro_torch.store.tier import TierManager
 
 #: quantiles of the corpus token-count distribution that seed the bucket
 #: capacities (the last one is stretched to cover the true maximum).
@@ -143,6 +150,8 @@ class CompressedStringStore:
         self._locate_encoder: Encoder | None = None
         self.stats = StoreStats(backend=self.backend)
         self._set_bucket_caps(corpus.token_counts())
+        #: hot/cold tiering; None until enable_tiering()
+        self.tier: TierManager | None = None
 
     def _set_bucket_caps(self, counts: np.ndarray) -> None:
         """Length buckets: token capacities from corpus quantiles."""
@@ -223,25 +232,20 @@ class CompressedStringStore:
         self.corpus.save(os.path.join(dir_path, self._CORPUS_FILE))
         with self._lock:
             blob = self._dump_index_locked()
+            tier_meta = self._tier_meta_locked()
         write_json_atomic(os.path.join(dir_path, self._META_FILE),
-                          self.store_meta())
+                          self.store_meta(**tier_meta))
         if blob is not None:
             with open(os.path.join(dir_path, self._INDEX_FILE), "wb") as f:
                 f.write(blob)
+        if tier_meta:
+            self.tier.copy_cold_files(tier_meta["cold_segments"], dir_path)
 
     @classmethod
     def _read_meta(cls, dir_path: str) -> dict:
-        """A saved store's ``store.json``. A store whose segments were demoted
-        to the reference's cold tier (``cold_segments``, ``cold-*.rlz``) is
-        refused: the port has no cold tier yet, and serving it without one
-        would drop those segments' strings."""
+        """A saved store's ``store.json``."""
         with open(os.path.join(dir_path, cls._META_FILE)) as f:
-            meta = json.load(f)
-        if meta.get("cold_segments"):
-            raise ValueError(
-                f"{dir_path}: {len(meta['cold_segments'])} segments are in the "
-                "cold tier; tiered stores are not ported yet")
-        return meta
+            return json.load(f)
 
     @classmethod
     def open_corpus_dir(cls, dir_path: str, source: DictArtifact,
@@ -255,6 +259,7 @@ class CompressedStringStore:
         kw.update(overrides)
         store = cls(source, corpus, **kw)
         store._load_index(dir_path)
+        store._attach_tier(dir_path, meta)
         return store
 
     @classmethod
@@ -283,6 +288,34 @@ class CompressedStringStore:
             os.path.join(dir_path, cls._DICT_FILE), mmap=mmap)
         return cls.open_corpus_dir(dir_path, artifact, mmap=mmap, device=device,
                                    **overrides)
+
+    # ----------------------------------------------------------------- tiering
+    def enable_tiering(self, **params) -> TierManager:
+        """Get-or-create the store's :class:`TierManager`. Parameters apply
+        on first creation; a later call with thresholds updates them."""
+        if self.tier is None:
+            self.tier = TierManager(self, **params)
+        elif params:
+            for k in ("demote_below", "promote_above", "halflife_s"):
+                if k in params:
+                    setattr(self.tier, k, float(params[k]))
+        return self.tier
+
+    def _tier_meta_locked(self) -> dict:
+        """store.json extras describing the tier state (``{}`` when the tier
+        is off or empty, so an untiered save stays as it was)."""
+        if self.tier is None or not self.tier.cold:
+            return {}
+        return {"tier_params": self.tier.params(),
+                "cold_segments": self.tier.cold_items_locked()}
+
+    def _attach_tier(self, dir_path: str, meta: dict) -> None:
+        """Re-adopt the cold segments a save listed (after ``_load_index``,
+        so both sidecars validate against the same live segmentation)."""
+        cold = meta.get("cold_segments")
+        if not cold:
+            return
+        self.enable_tiering(**meta.get("tier_params", {})).attach(dir_path, cold)
 
     # -------------------------------------------------------------- tail hooks
     # A store may hold strings beyond its sealed segments: the writable
@@ -329,8 +362,9 @@ class CompressedStringStore:
     @property
     def resident_device_bytes(self) -> int:
         """Bytes the device mirror of the sealed segments holds (payload and
-        token starts, spare room included); not part of ``memory_bytes``,
-        which counts what the reference counts."""
+        token starts, spare room included; cold segments' tokens are not
+        there); not part of ``memory_bytes``, which counts what the
+        reference counts."""
         return self.resident.device_bytes
 
     @property
@@ -340,10 +374,13 @@ class CompressedStringStore:
         ``resident_bytes`` (decode matrix and LPM tables included; over bare
         device tables the same count taken from them, see
         :attr:`OnPairDevice.resident_bytes`), the decoded-string cache, and
-        any unsealed tail payload. The tables' bytes on the device are
+        any unsealed tail payload. Cold segments do not count: their
+        payload and offsets are ``np.memmap`` views over their ``cold-*.rlz``
+        container. The tables' bytes on the device are
         ``stats_snapshot()["device_dict_bytes"]``."""
+        cold = self.tier.cold if self.tier is not None else ()
         seg_bytes = sum(s.payload_bytes + s.offsets.nbytes
-                        for s in self.segments.segments)
+                        for s in self.segments.segments if s.index not in cold)
         return (seg_bytes + self._device.resident_bytes
                 + self.cache.current_bytes + self._tail_payload_bytes())
 
@@ -367,6 +404,8 @@ class CompressedStringStore:
         if bad.any():
             raise IndexError(f"string id {int(arr[bad.argmax()])} out of range [0, {n})")
         with self._lock:
+            if self.tier is not None:
+                self.tier.note_reads_locked(arr)
             uniq, first, inverse = np.unique(arr, return_index=True,
                                              return_inverse=True)
             order = np.argsort(first)
@@ -396,8 +435,10 @@ class CompressedStringStore:
     def scan(self, lo: int, hi: int) -> list[bytes]:
         """Decode the contiguous id range [lo, hi): its sealed strings in one
         call of the stream kernel over the device mirror (one per
-        ``_SCAN_MAX_TOKENS`` tokens), split on per-string byte boundaries. Ranges may extend past the sealed
-        segments into an unsealed tail, which takes one more call."""
+        ``_SCAN_MAX_TOKENS`` tokens, and one per run of hot segments between
+        cold ones, whose strings decode from RLZ), split on per-string byte
+        boundaries. Ranges may extend past the sealed segments into an
+        unsealed tail, which takes one more call."""
         n = self.n_strings
         if not (0 <= lo <= hi <= n):
             raise IndexError(f"scan range [{lo}, {hi}) not within [0, {n}]")
@@ -410,21 +451,53 @@ class CompressedStringStore:
         out: list[bytes] = []
         sealed = self.resident.n_strings
         s_hi = min(hi, sealed)
-        if lo < s_hi:
-            starts = self.resident.host_starts
-            tokens, _ = self.resident.on_device()
-            a = lo
-            while a < s_hi:
-                # the strings from a whose tokens fit in one call, at least one
-                b = int(np.searchsorted(starts, starts[a] + _SCAN_MAX_TOKENS,
-                                        "right")) - 1
-                b = min(max(b, a + 1), s_hi)
-                out.extend(self._device.decode_span(
-                    tokens[int(starts[a]) : int(starts[b])],
-                    self.resident.raw_lens[a:b]))
-                a = b
+        for seg, a, b in self._scan_parts_locked(lo, s_hi):
+            if seg is None:
+                out.extend(self._scan_mirror_locked(a, b))
+            else:
+                out.extend(self.tier.decode_range_locked(
+                    seg.index, a - seg.base_id, b - seg.base_id))
         if hi > sealed:
             out.extend(self._tail_scan(max(lo, sealed) - sealed, hi - sealed))
+        return out
+
+    def _scan_parts_locked(self, lo: int, hi: int) -> list[tuple]:
+        """The sealed range [lo, hi) in id order as ``(segment, a, b)``
+        parts: a cold segment's strings, or (``segment`` None) a run of hot
+        strings, whose tokens lie back to back in the mirror."""
+        if lo >= hi:
+            return []
+        if self.tier is None or not self.tier.cold:
+            return [(None, lo, hi)]
+        parts: list[tuple] = []
+        for seg in self.segments.overlapping(lo, hi):
+            a, b = max(lo, seg.base_id), min(hi, seg.base_id + seg.n_strings)
+            if a >= b:
+                continue
+            if seg.index in self.tier.cold:
+                parts.append((seg, a, b))
+            elif parts and parts[-1][0] is None:
+                parts[-1] = (None, parts[-1][1], b)
+            else:
+                parts.append((None, a, b))
+        return parts
+
+    def _scan_mirror_locked(self, lo: int, hi: int) -> list[bytes]:
+        """Hot sealed strings [lo, hi), back to back in the mirror, in one
+        stream call per ``_SCAN_MAX_TOKENS`` tokens."""
+        out: list[bytes] = []
+        starts = self.resident.host_starts
+        tokens, _ = self.resident.on_device()
+        a = lo
+        while a < hi:
+            # the strings from a whose tokens fit in one call, at least one
+            b = int(np.searchsorted(starts, starts[a] + _SCAN_MAX_TOKENS,
+                                    "right")) - 1
+            b = min(max(b, a + 1), hi)
+            out.extend(self._device.decode_span(
+                tokens[int(starts[a]) : int(starts[b])],
+                self.resident.raw_lens[a:b]))
+            a = b
         return out
 
     # ---------------------------------------------------------- reverse lookup
@@ -603,14 +676,31 @@ class CompressedStringStore:
                     bucket_caps=[int(c) for c in self.bucket_caps],
                     memory_bytes=self.memory_bytes,
                     device_dict_bytes=self._device.dd.nbytes)
+        if self.tier is not None:
+            snap["tier"] = self.tier.snapshot()
         return snap
 
     # --------------------------------------------------------------- internals
     def _decode_misses(self, misses: np.ndarray) -> np.ndarray:
         """Decode the missed ids (unique, in first-seen order) into an object
-        array of bytes: every sealed one in one launch from the device
-        mirror (per ``_DECODE_MAX_ROWS`` ids), every tail one in a second
-        launch with host tokens.
+        array of bytes: those in cold segments from RLZ on the host (they
+        count in ``cold_lookups``), the others on the device (see
+        :meth:`_decode_hot`)."""
+        if self.tier is None or not self.tier.cold:
+            return self._decode_hot(misses)
+        is_cold, groups = self.tier.split_misses_locked(misses)
+        decoded = np.empty(misses.size, dtype=object)
+        if groups:
+            self.tier.decode_misses_locked(misses, groups, decoded)
+        hot = ~is_cold
+        if hot.any():
+            decoded[hot] = self._decode_hot(misses[hot])
+        return decoded
+
+    def _decode_hot(self, misses: np.ndarray) -> np.ndarray:
+        """Decode missed ids outside cold segments: every sealed one in one
+        launch from the device mirror (per ``_DECODE_MAX_ROWS`` ids), every
+        tail one in a second launch with host tokens.
 
         The stats keep the reference's accounting, which launched a padded
         ``(batch_size, cap)`` batch per chunk of ``batch_size`` misses of

@@ -4,7 +4,8 @@ kernels' plain versions), the reference on its numpy backend, over the same
 seeded titles. Covered: the artifact container byte for byte, corpora,
 artifacts through decode and re-encode, read stores, writable stores with
 an unsealed tail, compact()'s versioned swap, the index.npz sidecar, and
-the refusal of a reference store with cold segments."""
+stores with cold segments (read and writable, with their cold-*.rlz
+files)."""
 
 import json
 import os
@@ -18,6 +19,7 @@ from repro.core import registry
 from repro.core.api import CompressedCorpus as RefCorpus
 from repro.core.artifact import DictArtifact as RefArtifact
 from repro.core.artifact import dump_container as ref_dump_container
+from repro.core.artifact import read_container as ref_read_container
 from repro.core.codec import Decoder as RefDecoder
 from repro.core.codec import Encoder as RefEncoder
 from repro.core.packed import PackedDictionary as RefPacked
@@ -26,7 +28,7 @@ from repro.store import CompressedStringStore as RefStore
 from repro.store import MutableStringStore as RefMutable
 from repro_torch import convert
 from repro_torch.core import CompressedCorpus, Decoder, DictArtifact, Encoder
-from repro_torch.core.artifact import dump_container
+from repro_torch.core.artifact import dump_container, read_container
 from repro_torch.core.onpair import OnPairConfig
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.data.synth import load_dataset
@@ -476,30 +478,88 @@ def test_index_sidecar_adopted_across_packages(titles, tmp_path, direction):
 
 
 # ------------------------------------------------------------- cold tier
-def test_port_refuses_a_store_with_cold_segments(titles, tmp_path):
-    """The port has no cold tier yet: a reference store whose segments were
-    demoted is refused with a ValueError, by both opens, before any byte is
-    served; the same store promoted back opens."""
-    store = RefStore.build(titles[:1000], sample_bytes=SAMPLE,
-                           strings_per_segment=128)
+def _tiered(store, segments):
     tier = store.enable_tiering(promote_above=1e9)
-    for seg in store.segments.segments:
-        tier.demote(seg.index)
+    for si in segments:
+        assert tier.demote(si) is not None
+    return tier
+
+
+def _cold_files(d):
+    return sorted(n for n in os.listdir(d) if n.startswith("cold-"))
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_tiered_read_store_opens_across_packages(titles, tmp_path, direction):
+    """A read store with cold segments, saved by either package, opens in
+    the other with the same cold set and tier_params and serves the same
+    bytes, the cold ones from the other package's RLZ files; the port's
+    opened store keeps the cold segments off its device mirror; the cold
+    files are byte for byte what the other package writes for them."""
+    n, cold = 1000, [0, 2, 3, 7]
+    store = _build_read(direction, titles[:n], strings_per_segment=128)
+    _tiered(store, cold)
     d = str(tmp_path / "tiered")
     store.save(d)
-    assert any(n.startswith("cold-") for n in os.listdir(d))
-    for open_ in (CompressedStringStore.open, MutableStringStore.open):
-        with pytest.raises(ValueError, match="tiered stores are not ported yet"):
-            open_(d, device=CPU)
-    m = RefMutable.open(d)
-    m.save(str(tmp_path / "tiered-mut"))
-    with pytest.raises(ValueError, match="cold tier"):
-        MutableStringStore.open(str(tmp_path / "tiered-mut"), device=CPU)
-    for seg in store.segments.segments:
-        tier.promote(seg.index)
-    store.save(str(tmp_path / "hot"))
-    assert CompressedStringStore.open(str(tmp_path / "hot"), device=CPU).scan(
-        0, 1000) == titles[:1000]
+    assert _cold_files(d) == [f"cold-{si:04d}.rlz" for si in cold]
+    reopened = _open_read(direction, d)
+    assert sorted(reopened.tier.cold) == cold
+    assert reopened.tier.params() == store.tier.params()
+    with open(os.path.join(d, "store.json")) as f:
+        meta = json.load(f)
+    assert meta["tier_params"] == store.tier.params()
+    assert [c["segment"] for c in meta["cold_segments"]] == cold
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, n, 600).tolist()
+    assert reopened.multiget(ids) == store.multiget(ids) == [titles[i] for i in ids]
+    assert reopened.scan(0, n) == store.scan(0, n) == titles[:n]
+    assert reopened.stats.cold_lookups > 0
+    assert reopened.memory_bytes == store.memory_bytes
+    port = reopened if direction == "ref_to_port" else store
+    assert port.resident.n_bytes == sum(
+        s.payload_bytes for s in port.segments.segments if s.index not in cold)
+    # the other package demotes the same segments to the same files
+    d2 = str(tmp_path / "again")
+    _tiered(_build_read("port_to_ref" if direction == "ref_to_port" else "ref_to_port",
+                        titles[:n], strings_per_segment=128), cold).store.save(d2)
+    for name in _cold_files(d):
+        h, a = (ref_read_container if direction == "port_to_ref" else read_container)(
+            os.path.join(d, name))
+        h2, a2 = read_container(os.path.join(d2, name))
+        assert h == h2 and set(a) == set(a2)
+        for k in a:
+            np.testing.assert_array_equal(a[k], a2[k])
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_tiered_writable_store_opens_across_packages(ref_art, titles, tmp_path,
+                                                     direction):
+    """A writable store with cold segments and an unsealed tail, saved in
+    the versioned layout by either package, opens in the other with the
+    same cold set (the files copied into ``v0000/``, none left flat) and
+    serves the same bytes; it stays writable, and its compact() folds the
+    tier back and writes ``v0001/`` without cold files."""
+    store = _mutable(direction, ref_art, titles[:600], strings_per_segment=128)
+    store.extend(titles[600:650])
+    _tiered(store, [1, 4])
+    d = str(tmp_path / "wtiered")
+    store.save(d)
+    assert _cold_files(os.path.join(d, "v0000")) == ["cold-0001.rlz", "cold-0004.rlz"]
+    assert _cold_files(d) == []
+    reopened = _open_mutable(direction, d)
+    assert sorted(reopened.tier.cold) == [1, 4]
+    assert reopened.n_strings == 650 and reopened.n_sealed == 600
+    assert reopened.scan(0, 650) == store.scan(0, 650) == titles[:650]
+    ids = list(range(0, 650, 3))
+    assert reopened.multiget(ids) == [titles[i] for i in ids]
+    assert reopened.stats.cold_lookups > 0
+    assert reopened.extend(titles[650:700]) == list(range(650, 700))
+    report = reopened.compact(dir_path=d)
+    assert report["version"] == "v0001" and reopened.tier.cold == {}
+    assert _cold_files(os.path.join(d, "v0001")) == []
+    again = _open_mutable("ref_to_port" if direction == "port_to_ref" else "port_to_ref", d)
+    assert again.scan(0, 700) == titles[:700]
+    assert again.tier is None
 
 
 def test_open_without_a_card_raises(tmp_path, port_art, ref_art, titles):
