@@ -43,13 +43,27 @@ after:
    segment promoted by a read burst and the rest by ``tier_op``, after
    which the mirror equals that of a store never tiered on the card; four
    segments demoted again, saved, and opened here and in a fresh process,
-   then located in and prefix-scanned.
+   then located in and prefix-scanned;
+7. serving: the read store written as four shards by ``save_sharded`` and
+   opened by ``ShardedStringStore.open`` on one shared device codec (one
+   upload of the tables, checked), every id read through the router (one
+   decode launch per shard a call touches), ``scan(0, n)`` (one stream
+   launch a shard), ``scan_prefix`` and ``locate_batch`` against the flat
+   store's answers, a segment of each shard demoted, read back from RLZ and
+   promoted, 5,000 strings extended onto the tail shard, saved, reopened
+   and read back; then ``StoreService`` over the read store (point lookups
+   from eight threads, 1,024-id requests from four, each drained batch one
+   decode launch) and over a writable store (appends interleaved with
+   reads), its counters read after ``close()`` joined the worker, and a
+   profiled window of the service's multigets in which torch.profiler sees
+   every launch of its worker thread.
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
 length cap, chunks of up to ``encode_pad_batch`` strings and
 ``ops._ENCODE_CHUNK_BYTES`` padded bytes), its decode launches from its
-multiget calls and its stream launches from its scan ranges. Afterwards it profiles a window of each path (device busy
+multiget calls (per shard touched, on the sharded store) and its stream
+launches from its scan ranges. Afterwards it profiles a window of each path (device busy
 share, and the host's own time under cProfile), holds each kernel against
 its plain PyTorch version on the card, exactly, at the paths' shapes (for
 the encode kernel: every launch of the whole-corpus encode, and the corpus
@@ -81,6 +95,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -105,6 +120,13 @@ WRITABLE_EXTEND = 5_000  # strings appended before the save and after the open
 WRITABLE_COLD = [3, 20, 40, 64]  # its segments demoted before the save
 TIER_COLD = list(range(0, 192, 16))  # the read store's segments demoted off-thread
 TIER_SAVE_COLD = [1, 50, 100, 195]  # demoted again before the tiered save
+SERVE_SHARDS = 4  # shards the serve phase writes the read store as
+SERVE_COLD = [1, 10, 20, 48]  # each shard's local segment demoted (mod its count)
+SERVE_EXTEND = 5_000  # strings appended to the tail shard and through the service
+SERVE_CLIENTS = 8  # threads of service get() calls
+SERVE_MULTIGET_CLIENTS = 4  # threads of 1,024-id service multiget requests
+SERVE_GET_IDS = 100_000  # shuffled ids the get() threads share
+SERVICE_WINDOW_TRIES = 3  # profiled service windows until one sees every launch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
@@ -161,22 +183,38 @@ def device_ms(fn, symbol: str, reps: int) -> tuple[float | None, dict[str, int]]
     return (total_us / reps / 1e3 if total_us > 0 else None), seen
 
 
+#: the profiler's marker around a window: device activity is counted only
+#: inside it, so what the tracer drops while it starts (a window without
+#: it once saw 199 of its 200 launches) falls on the warm-up before it
+WINDOW_MARK = "chip_smoke.window"
+
+
 def device_window(fn) -> tuple[float, dict[str, list]]:
-    """Run ``fn`` once under torch.profiler. Returns the window's wall seconds
-    and, per device activity (each kernel by name, copies, sets), its count
-    and summed device seconds. Empty when the profiler saw no device time."""
+    """Run ``fn`` once under torch.profiler, after a one-element warm-up
+    launch outside the window's marker. Returns the window's wall seconds
+    and, per device activity in the marker's span (each kernel by name,
+    copies, sets), its count and summed device seconds. Empty when the
+    profiler saw no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with record_function(WINDOW_MARK):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    mark = next(ev.time_range for ev in events
+                if ev.name == WINDOW_MARK and ev.device_type == DeviceType.CPU)
     acts: dict[str, list] = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in events:
+        # the marker's own range shows on the device timeline too: not work
+        if ev.device_type != DeviceType.CUDA or ev.name == WINDOW_MARK or not (
+                mark.start <= ev.time_range.start <= mark.end):
             continue
         key = next((n for n, sym in KERNEL_SYMBOLS.items() if sym in ev.name),
                    "copies" if "Memcpy" in ev.name else
@@ -282,9 +320,11 @@ def main() -> int:
     from repro_torch.core.onpair import OnPairConfig, train_dictionary
     from repro_torch.core.packed import PackedDictionary
     from repro_torch.data.synth import load_dataset
+    from repro_torch.distributed import ShardedStringStore, plan_shards, save_sharded
     from repro_torch.kernels import (_build, crafted, onpair_decode, onpair_encode,
                                      ops, ref)
-    from repro_torch.store import CompressedStringStore, MutableStringStore, tier_op
+    from repro_torch.store import (CompressedStringStore, MutableStringStore,
+                                   StoreService, tier_op)
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1111,6 +1151,397 @@ def main() -> int:
         f"{tier_prefix!r}) {tier_prefix_s * 1e3:.1f} ms, {tier_prefix_launches} decode "
         f"launches; the phase's wall {tier_wall:.1f} s")
 
+    # --------------------------------------------------------- 4.7 serving
+    # the read store as SERVE_SHARDS shards on one shared device codec (read,
+    # scanned, located in, prefix-scanned, tiered, appended to, saved and
+    # reopened), then StoreService over the flat read store (point lookups
+    # from client threads, bulk multigets) and over a writable store
+    # (appends interleaved with reads); every launch recomputed from inputs
+    counts.start()
+    t_phase = time.perf_counter()
+    ddir = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    shard_dir = os.path.join(ddir, "sharded")
+    bounds = save_sharded(store, shard_dir, SERVE_SHARDS)
+    if bounds != plan_shards(n_all, spc, SERVE_SHARDS):
+        raise AssertionError(f"serve: save_sharded wrote bounds {bounds}")
+    seg_per_shard = [-(-(hi - lo) // spc) for lo, hi in bounds]
+    shard_first_seg = np.cumsum([0] + seg_per_shard[:-1]).tolist()
+    shard_lo = np.asarray([lo for lo, _ in bounds], np.int64)
+    builds = []
+    real_build = ref.DeviceDict.build
+
+    def counting_build(d, device):
+        builds.append(device)
+        return real_build(d, device)
+
+    ref.DeviceDict.build = staticmethod(counting_build)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = ShardedStringStore.open(shard_dir, device=dev)
+        torch.cuda.synchronize()
+        shard_open_s = time.perf_counter() - t0
+    finally:
+        ref.DeviceDict.build = staticmethod(real_build)
+    shared = sharded.stores[0]._device
+    ptrs = {st._device.dd.mat16.data_ptr() for st in sharded.stores}
+    if len(builds) != 1 or any(st._device is not shared for st in sharded.stores) \
+            or len(ptrs) != 1:
+        raise AssertionError(f"serve: the open ran DeviceDict.build {len(builds)} "
+                             f"times and left {len(ptrs)} mat16 tables for "
+                             f"{SERVE_SHARDS} shards")
+    mirrors = [st.resident.n_bytes for st in sharded.stores]
+    if sum(mirrors) != store.resident.n_bytes or \
+            [st.segments.n_segments for st in sharded.stores] != seg_per_shard:
+        raise AssertionError(f"serve: the shards' mirrors hold {mirrors} B "
+                             f"(flat store {store.resident.n_bytes} B), segments "
+                             f"{[st.segments.n_segments for st in sharded.stores]}")
+
+    def shard_calls(id_batches, cold_segs=()) -> int:
+        """Decode launches of sharded multigets, cache off: one per shard a
+        call touches with an id outside the ``cold_segs`` (global segment
+        numbers; shards split on segment boundaries)."""
+        n = 0
+        for ids in map(np.asarray, id_batches):
+            hot = ids[~np.isin(ids // spc, list(cold_segs))]
+            n += np.unique(np.searchsorted(shard_lo, hot, side="right")).size
+        return n
+
+    before = onpair_decode.decode_compact.launches
+    t0 = time.perf_counter()
+    answers = [sharded.multiget(ids) for ids in batches]
+    shard_mg_s = time.perf_counter() - t0
+    for ids, got in zip(batches, answers):
+        check_strings("sharded multiget", got, [strings[i] for i in ids])
+    del answers
+    shard_mg_launches = onpair_decode.decode_compact.launches - before
+    if shard_mg_launches != shard_calls(batches):
+        raise AssertionError(f"serve: {shard_mg_launches} decode launches for the "
+                             f"sharded sweep, expected {shard_calls(batches)}")
+    before = onpair_decode.decode_tokens.launches
+    t0 = time.perf_counter()
+    check_strings("sharded scan(0, n)", sharded.scan(0, n_all), strings)
+    shard_scan_s = time.perf_counter() - t0
+    if onpair_decode.decode_tokens.launches - before != SERVE_SHARDS:
+        raise AssertionError(f"serve: sharded scan(0, n) made "
+                             f"{onpair_decode.decode_tokens.launches - before} stream "
+                             f"launches, expected {SERVE_SHARDS}")
+    # the flat store's answers (its indexes built in 4.5), then the shards':
+    # the first scan_prefix builds every shard segment's index (one stream
+    # launch each) and probes exactly the flat store's strings (the same
+    # segments, the same limit each)
+    serve_prefix = prefixes[7]
+    before = onpair_decode.decode_compact.launches
+    flat_prefix = opened.scan_prefix(serve_prefix, limit=PREFIX_LIMIT)
+    flat_prefix_launches = onpair_decode.decode_compact.launches - before
+    loc_q = hit_q[:MULTIGET_IDS]
+    flat_loc = opened.locate_batch(loc_q)
+    before = (onpair_decode.decode_compact.launches, onpair_decode.decode_tokens.launches)
+    t0 = time.perf_counter()
+    shard_prefix = sharded.scan_prefix(serve_prefix, limit=PREFIX_LIMIT)
+    shard_prefix_s = time.perf_counter() - t0
+    shard_prefix_launches = onpair_decode.decode_compact.launches - before[0]
+    index_launches = onpair_decode.decode_tokens.launches - before[1]
+    if shard_prefix != flat_prefix or shard_prefix_launches != flat_prefix_launches \
+            or index_launches != n_seg:
+        raise AssertionError(f"serve: sharded scan_prefix({serve_prefix!r}) made "
+                             f"{shard_prefix_launches} decode and {index_launches} "
+                             f"stream launches (flat: {flat_prefix_launches} and "
+                             f"{n_seg} index builds), answers equal: "
+                             f"{shard_prefix == flat_prefix}")
+    t0 = time.perf_counter()
+    shard_loc = sharded.locate_batch(loc_q)
+    shard_loc_s = time.perf_counter() - t0
+    if shard_loc != flat_loc or shard_loc != want_hits[:MULTIGET_IDS]:
+        raise AssertionError("serve: sharded locate_batch differs from the flat store's")
+    # each shard encodes the queries no earlier shard answered
+    ans = np.asarray(flat_loc, np.int64)
+    shard_loc_encode = sum(encode_calls([q for q, a in zip(loc_q, ans) if a >= lo])
+                           for lo in shard_lo if (ans >= lo).any())
+
+    # the tier fan-out: one segment of each shard demoted, every id read back
+    # (cold ones from RLZ on the host), every segment promoted
+    cold_local = [c % seg_per_shard[k] for k, c in enumerate(SERVE_COLD)]
+    cold_global = [shard_first_seg[k] + c for k, c in enumerate(cold_local)]
+    t0 = time.perf_counter()
+    demoted = [sharded.demote(shard=k, segment=c, promote_above=1e9,
+                              workdir=os.path.join(ddir, f"tier-{k}"))[0]
+               for k, c in enumerate(cold_local)]
+    shard_demote_s = time.perf_counter() - t0
+    if [r["demoted"] for r in demoted] != [[c] for c in cold_local]:
+        raise AssertionError(f"serve: the fan-out demoted {demoted}")
+    if sum(st.resident.n_bytes for st in sharded.stores) != store.resident.n_bytes - sum(
+            store.segments.segments[g].payload_bytes for g in cold_global):
+        raise AssertionError("serve: the demotions did not take their segments off "
+                             "the mirrors")
+    before = onpair_decode.decode_compact.launches
+    lookups0 = sum(st.stats.cold_lookups for st in sharded.stores)
+    t0 = time.perf_counter()
+    answers = [sharded.multiget(ids) for ids in batches]
+    shard_tier_s = time.perf_counter() - t0
+    for ids, got in zip(batches, answers):
+        check_strings("sharded multiget with cold segments", got,
+                      [strings[i] for i in ids])
+    del answers
+    shard_cold_lookups = sum(st.stats.cold_lookups for st in sharded.stores) - lookups0
+    shard_tier_launches = onpair_decode.decode_compact.launches - before
+    n_cold_ids = int(np.isin(np.arange(n_all) // spc, cold_global).sum())
+    if (shard_tier_launches, shard_cold_lookups) != (
+            shard_calls(batches, cold_global), n_cold_ids):
+        raise AssertionError(f"serve: tiered sweep made {shard_tier_launches} decode "
+                             f"launches and {shard_cold_lookups} cold lookups, expected "
+                             f"{shard_calls(batches, cold_global)} and {n_cold_ids}")
+    promoted = sharded.promote()
+    if [r["promoted"] for r in promoted] != [[c] for c in cold_local] or \
+            sum(st.resident.n_bytes for st in sharded.stores) != store.resident.n_bytes:
+        raise AssertionError(f"serve: promote() gave {promoted}")
+    tier_rows = sharded.tier_stats()
+    del sharded
+
+    # writable: SERVE_EXTEND strings appended to the tail shard, saved,
+    # reopened read-only, read back
+    ws = ShardedStringStore.open(shard_dir, device=dev, writable=True)
+    if len({id(st._device) for st in ws.stores}) != 1:
+        raise AssertionError("serve: the writable shards do not share one device codec")
+    tail_n0 = ws.stores[-1].n_strings
+    app = strings[:SERVE_EXTEND]
+    t0 = time.perf_counter()
+    app_ids = [i for lo in range(0, SERVE_EXTEND, EXTEND_BATCH)
+               for i in ws.extend(app[lo : lo + EXTEND_BATCH])]
+    shard_extend_s = time.perf_counter() - t0
+    shard_extend_encode = sum(encode_calls(app[lo : lo + EXTEND_BATCH])
+                              for lo in range(0, SERVE_EXTEND, EXTEND_BATCH))
+    if app_ids != list(range(n_all, n_all + SERVE_EXTEND)) or \
+            ws.stores[-1].n_strings != tail_n0 + SERVE_EXTEND or \
+            [st.n_strings for st in ws.stores[:-1]] != [hi - lo for lo, hi in bounds[:-1]]:
+        raise AssertionError("serve: the appends did not land on the tail shard")
+    t0 = time.perf_counter()
+    ws.save()
+    shard_save_s = time.perf_counter() - t0
+    del ws
+    re_sharded = ShardedStringStore.open(shard_dir, device=dev)
+    if re_sharded.n_strings != n_all + SERVE_EXTEND:
+        raise AssertionError(f"serve: the reopened shards hold {re_sharded.n_strings}")
+    app_batches = [app_ids[i : i + MULTIGET_IDS]
+                   for i in range(0, SERVE_EXTEND, MULTIGET_IDS)]
+    for ids in app_batches:
+        check_strings("appended ids after save and reopen", re_sharded.multiget(ids),
+                      [app[i - n_all] for i in ids])
+    del re_sharded
+    shutil.rmtree(ddir, ignore_errors=True)
+
+    # StoreService over the flat read store: SERVE_CLIENTS threads of point
+    # lookups, then SERVE_MULTIGET_CLIENTS threads of 1,024-id requests that
+    # cover every id once (closed loops: a drained batch holds at most a
+    # request a client, under ops._DECODE_MAX_ROWS ids, so every read batch
+    # is one decode launch), then the same requests as one open-loop burst,
+    # whose drained batches of up to max_batch requests split into launches
+    # of ops._DECODE_MAX_ROWS ids. Every store.multiget call is logged: its
+    # launches follow from its unique ids (cache_bytes=0, no cold segment)
+    get_ids = np.random.default_rng(SEED + 8).permutation(n_all)[:SERVE_GET_IDS]
+    errors: list = []
+    flat_calls: list = []
+    burst_gate = threading.Event()
+    burst_gate.set()
+
+    def flat_logged_multiget(ids):
+        burst_gate.wait(60)  # holds the worker while a burst is queued
+        flat_calls.append(np.unique(np.asarray(ids, np.int64)).size)
+        return type(store).multiget(store, ids)
+
+    def flat_launches(calls) -> int:
+        return sum(-(-n // ops._DECODE_MAX_ROWS) for n in calls)
+
+    def run_clients(target, shares) -> float:
+        threads = [threading.Thread(target=target, args=(share,)) for share in shares]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"serve: a client thread hung or failed: {errors[:1]}")
+        return wall
+
+    def getter(share):
+        try:
+            for i in share.tolist():
+                if svc.get(i, timeout=60) != strings[i]:
+                    raise AssertionError(f"service get({i}) differs from its source")
+        except Exception as e:  # re-raised on the main thread
+            errors.append(e)
+
+    def multigetter(share):
+        # a closed loop, each request awaited before the next: a drained
+        # batch holds at most one request a thread, under a launch's row cap
+        try:
+            for ids in share:
+                check_strings("service multiget", svc.submit_multiget(ids).result(60),
+                              [strings[i] for i in ids])
+        except Exception as e:
+            errors.append(e)
+
+    before = onpair_decode.decode_compact.launches
+    store.multiget = flat_logged_multiget
+    try:
+        svc = StoreService(store)
+        try:
+            get_wall = run_clients(getter, [get_ids[k::SERVE_CLIENTS]
+                                            for k in range(SERVE_CLIENTS)])
+            get_stats = svc.stats()
+            mg_wall = run_clients(multigetter, [batches[k::SERVE_MULTIGET_CLIENTS]
+                                                for k in range(SERVE_MULTIGET_CLIENTS)])
+        finally:
+            svc.close()
+        closed_stats = svc.stats()  # read after close() joined the worker
+        closed_launches = onpair_decode.decode_compact.launches - before
+        closed_calls = len(flat_calls)
+        workers = [svc._worker]
+        burst_gate.clear()
+        svc = StoreService(store)
+        try:
+            t0 = time.perf_counter()
+            burst = [svc.submit_multiget(ids) for ids in batches]
+            burst_gate.set()
+            for ids, fut in zip(batches, burst):
+                check_strings("service multiget burst", fut.result(60),
+                              [strings[i] for i in ids])
+            burst_wall = time.perf_counter() - t0
+        finally:
+            burst_gate.set()
+            svc.close()
+        workers.append(svc._worker)
+    finally:
+        del store.multiget  # the class's again
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("serve: close() did not join the service's worker")
+    burst_stats = svc.stats()
+    svc_launches = onpair_decode.decode_compact.launches - before
+    burst_calls = flat_calls[closed_calls:]
+    if closed_launches != closed_stats["batches"] or \
+            closed_launches != flat_launches(flat_calls[:closed_calls]) or \
+            closed_calls != closed_stats["batches"] or \
+            closed_stats["requests"] != get_ids.size + n_all or \
+            svc_launches - closed_launches != flat_launches(burst_calls) or \
+            len(burst_calls) != burst_stats["batches"] or \
+            burst_stats["requests"] != n_all:
+        raise AssertionError(f"serve: the service made {closed_launches} decode launches "
+                             f"for {closed_stats['batches']} batches of closed loops "
+                             f"and {svc_launches - closed_launches} for "
+                             f"{burst_stats['batches']} batches of a burst, in "
+                             f"{len(flat_calls)} store calls")
+    if max(burst_calls) <= ops._DECODE_MAX_ROWS:
+        raise AssertionError(f"serve: no batch of the open-loop burst split (largest "
+                             f"{max(burst_calls)} ids)")
+
+    # StoreService over a writable store: appends interleaved with reads of
+    # old ids and of acknowledged new ones; seals inline, so each logged
+    # store call's launches follow from its ids and the sealed count
+    mstore = MutableStringStore(dictionary, corpus, device=dev, config=config,
+                                strings_per_segment=spc, cache_bytes=0,
+                                async_seal=False)
+    store_calls: list = []
+    real_multiget, real_extend = mstore.multiget, mstore.extend
+
+    def logged_multiget(ids):
+        store_calls.append(("multiget", np.asarray(ids, np.int64), mstore.n_sealed))
+        return real_multiget(ids)
+
+    def logged_extend(batch):
+        store_calls.append(("extend", list(batch)))
+        return real_extend(batch)
+
+    mstore.multiget, mstore.extend = logged_multiget, logged_extend
+    rng = np.random.default_rng(SEED + 9)
+    append_futs, read_futs = [], []
+    msvc = StoreService(mstore)
+    try:
+        t0 = time.perf_counter()
+        for j, s in enumerate(app):
+            append_futs.append(msvc.submit_append(s))
+            if j % 50 == 49:
+                # appends resolve in order: every id up to this one is acked
+                acked = append_futs[j - 49].result(60)
+                ids = np.concatenate([rng.integers(0, n_all, 48),
+                                      rng.integers(n_all, acked + 1, 16)])
+                read_futs.append((ids, msvc.submit_multiget(ids)))
+        new_ids = [f.result(60) for f in append_futs]
+        for ids, fut in read_futs:
+            got = fut.result(60)
+            check_strings("service read between appends", got,
+                          [strings[i] if i < n_all else app[i - n_all] for i in ids])
+        mixed_wall = time.perf_counter() - t0
+    finally:
+        msvc.close()
+    m_stats = msvc.stats()
+    n_extends = sum(kind == "extend" for kind, *_ in store_calls)
+    if new_ids != list(range(n_all, n_all + SERVE_EXTEND)) or \
+            m_stats["append_batches"] != n_extends or m_stats["appends"] != SERVE_EXTEND:
+        raise AssertionError(f"serve: appends through the service gave ids "
+                             f"{new_ids[:3]}..., {m_stats['append_batches']} append "
+                             f"batches for {n_extends} extend calls")
+    for ids in app_batches:
+        check_strings("appended ids", mstore.multiget(ids), [app[i - n_all] for i in ids])
+    serve_tail_calls = sum(bool((c[1] >= c[2]).any()) for c in store_calls
+                           if c[0] == "multiget")
+    mutable_decode = sum(bool((c[1] < c[2]).any()) for c in store_calls
+                         if c[0] == "multiget") + serve_tail_calls
+    mutable_encode = sum(encode_calls(c[1]) for c in store_calls if c[0] == "extend")
+    del mstore, store_calls
+    serve_prefix_launches = 2 * flat_prefix_launches  # the flat store's and the shards'
+    serve_wall = time.perf_counter() - t_phase
+    serve = counts.end("serve", ["decode_compact", "decode_tokens", "encode_batch"])
+    expect_serve = {
+        "decode_compact": shard_mg_launches + serve_prefix_launches
+        + shard_tier_launches + len(app_batches) + svc_launches + mutable_decode,
+        # the shards' whole ranges, their index builds, the demotions' reads
+        "decode_tokens": SERVE_SHARDS + n_seg + SERVE_SHARDS,
+        "encode_batch": encode_calls(loc_q) + shard_loc_encode + shard_extend_encode
+        + mutable_encode}
+    if serve != expect_serve:
+        raise AssertionError(f"serve: launches {serve}, expected {expect_serve}")
+    get_lat, closed_lat = get_stats["request_latency"], closed_stats["request_latency"]
+    log("serve", f"[{card}] {SERVE_SHARDS} shards of {seg_per_shard} segments (bounds "
+        f"{bounds}) opened in {shard_open_s:.3f} s with one OnPairDevice (DeviceDict."
+        f"build ran once; one mat16 table); mirrors {mirrors} B, together the flat "
+        f"store's {store.resident.n_bytes} B")
+    log("serve", f"[{card}] sharded multiget, every id in the read path's "
+        f"{len(batches)} shuffled calls: {n_all / shard_mg_s:.1f} lookups/s "
+        f"({shard_mg_launches} decode launches, one per shard a call touches), "
+        f"against the flat store's {n_all / multiget_s:.1f} in 4.1; scan(0, n) "
+        f"{throughput_mib_s(raw_bytes, shard_scan_s):.1f} MiB/s ({SERVE_SHARDS} stream "
+        f"launches); scan_prefix({serve_prefix!r}) {shard_prefix_s:.3f} s with the "
+        f"{n_seg} index builds, {shard_prefix_launches} probes (== the flat store's); "
+        f"locate_batch of {len(loc_q)} hits {shard_loc_s:.3f} s (== the flat store's)")
+    log("serve", f"[{card}] tier fan-out: segments {cold_local} (global {cold_global}) "
+        f"demoted, one a shard, in {shard_demote_s:.3f} s; every id read back at "
+        f"{n_all / shard_tier_s:.1f} lookups/s ({shard_tier_launches} decode launches, "
+        f"{shard_cold_lookups} cold lookups); promote() brought every mirror back; "
+        f"tier_stats n_cold {[r['n_cold'] for r in tier_rows]}")
+    log("serve", f"[{card}] writable shards: {SERVE_EXTEND} strings extended onto the "
+        f"tail shard in {shard_extend_s:.3f} s ({shard_extend_encode} encode launches), "
+        f"save() {shard_save_s:.3f} s, reopened and read back == the source")
+    log("serve", f"[{card}] StoreService over the flat store: {get_ids.size} get() "
+        f"from {SERVE_CLIENTS} threads {get_ids.size / get_wall:.1f} requests/s "
+        f"(avg_batch {get_stats['avg_batch']}, max_batch_seen "
+        f"{get_stats['max_batch_seen']}, latency p50 {get_lat['p50_us']:.1f} us, p99 "
+        f"{get_lat['p99_us']:.1f} us); {len(batches)} submit_multiget of "
+        f"{MULTIGET_IDS} ids from {SERVE_MULTIGET_CLIENTS} threads "
+        f"{n_all / mg_wall:.1f} lookups/s; {closed_stats['requests']} requests in "
+        f"closed loops in {closed_stats['batches']} batches == {closed_launches} decode "
+        f"launches (avg_batch {closed_stats['avg_batch']}, max_batch_seen "
+        f"{closed_stats['max_batch_seen']}, p50 {closed_lat['p50_us']:.1f} us, p99 "
+        f"{closed_lat['p99_us']:.1f} us); the same {len(batches)} requests as one "
+        f"open-loop burst {n_all / burst_wall:.1f} lookups/s in {burst_stats['batches']} "
+        f"batches of up to {max(burst_calls)} ids, {svc_launches - closed_launches} decode "
+        f"launches == sum of ceil(ids / {ops._DECODE_MAX_ROWS}) over the store calls")
+    log("serve", f"[{card}] StoreService over a writable store: {SERVE_EXTEND} "
+        f"submit_append with {len(read_futs)} reads between them in {mixed_wall:.3f} s; "
+        f"ids contiguous and in order; {m_stats['append_batches']} append batches == "
+        f"{n_extends} extend calls; every id == its source; the phase's wall "
+        f"{serve_wall:.1f} s")
+
     # ------------------------------------------- 5. device share of each path
     # a window of each path, driven as above but under torch.profiler (after
     # the counts were read): kernel device time over the window's wall
@@ -1144,6 +1575,41 @@ def main() -> int:
         "cold multiget": device_window(
             lambda: [tiered.multiget(ids) for ids in tiered_cold_batches]),
     }
+    # the service's window: the same 1,024-id calls as submit_multiget, each
+    # answered by the worker thread's launch; the profiler must see them all.
+    # At times the profiler loses the records of a window's first launches
+    # (their copies too; those it keeps then start before the window's
+    # marker), in a direct multiget window as well: a window short of the
+    # wrapper's count is logged and run again, at most SERVICE_WINDOW_TRIES
+    # times, and one of them must see every launch
+    wsvc = StoreService(store)
+    wsvc.submit_multiget(batches[0]).result(60)  # the worker's first launch, unprofiled
+    batches0 = wsvc.batches
+    window_launches = []
+    try:
+        for attempt in range(1, SERVICE_WINDOW_TRIES + 1):
+            before = onpair_decode.decode_compact.launches
+            windows["service multiget"] = device_window(
+                lambda: [wsvc.submit_multiget(ids).result(60)
+                         for ids in batches[:MULTIGET_WINDOW]])
+            svc_window_launches = onpair_decode.decode_compact.launches - before
+            window_launches.append(svc_window_launches)
+            svc_seen = windows["service multiget"][1].get("decode_compact", [0])[0]
+            if svc_seen == svc_window_launches:
+                break
+            log("device", f"[{card}] service window {attempt}: torch.profiler saw "
+                f"{svc_seen} decode_rows_kernel launches, the wrapper counted "
+                f"{svc_window_launches}")
+    finally:
+        wsvc.close()
+    if svc_seen != svc_window_launches or \
+            sum(window_launches) != wsvc.batches - batches0 or \
+            svc_window_launches != MULTIGET_WINDOW:
+        raise AssertionError(f"serve: torch.profiler saw {svc_seen} decode_rows_kernel "
+                             f"launches in the service window, the wrapper counted "
+                             f"{svc_window_launches}; {sum(window_launches)} launches for "
+                             f"{wsvc.batches - batches0} batches in {len(window_launches)} "
+                             f"windows")
     path_ms: dict[str, dict[str, float]] = {}
     for path, (wall, acts) in windows.items():
         if not acts:
@@ -1160,6 +1626,13 @@ def main() -> int:
             if name in acts:  # mean device ms per wrapper call in the window
                 path_ms.setdefault(name, {})[path] = acts[name][1] / acts[name][0] * 1e3
     log("device", f"mean device ms per wrapper call over each window: {path_ms}")
+    busy = {p: sum(sec for _, sec in windows[p][1].values()) / windows[p][0]
+            for p in ("multiget", "service multiget")}
+    log("device", f"[{card}] {MULTIGET_WINDOW} calls of {MULTIGET_IDS} ids: device busy "
+        f"{busy['multiget']:.2%} through store.multiget ({windows['multiget'][0]:.3f} "
+        f"s), {busy['service multiget']:.2%} through StoreService.submit_multiget "
+        f"({windows['service multiget'][0]:.3f} s; {svc_seen} decode_rows_kernel "
+        "launches from the worker thread, all seen by torch.profiler)")
 
     def host_profile(fn, top: int = 8) -> str:
         """Wall of ``fn`` under cProfile and the functions with the most
@@ -1446,24 +1919,25 @@ def main() -> int:
                   "a real 1,024-id multiget"),
         rows_bytes(row_tokens(ids), ids.size, True, int(mirror_off(ids)[-1])),
         counts.total["decode_compact"] - tail_launches - w_tail_calls - prefix_launches
-        - tier_prefix_launches)
+        - tier_prefix_launches - serve_prefix_launches - serve_tail_calls)
     # a scan_prefix probe decodes one string of the mirror a launch
     ids = np.asarray(order[:1])
     rows_inputs["a 1-id scan_prefix probe from the mirror (uint16)"] = (
         rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
                   "a scan_prefix probe's one row"),
         rows_bytes(row_tokens(ids), 1, True, int(mirror_off(ids)[-1])),
-        prefix_launches + tier_prefix_launches)
+        prefix_launches + tier_prefix_launches + serve_prefix_launches)
     ids = order[: ops._DECODE_MAX_ROWS]
     rows_pair(res_tokens, res_starts, ids, mirror_off(ids),
               f"a full launch of {ids.size} mirror rows")
     tail_u = list(dict.fromkeys(tail_ids))
     tk, st, off = host_rows([row_tokens([i]) for i in tail_u])
-    # (the persist phase's multigets send a few tail rows a call: counted here)
+    # (the persist phase's multigets and the serve phase's writable service
+    # send a few tail rows a call: counted here)
     rows_inputs[f"{len(tail_u)} tail rows from the host (int32)"] = (
         rows_pair(tk, st, None, off, "the writable phase's tail rows"),
         rows_bytes(row_tokens(tail_u), len(tail_u), False, int(off[-1])),
-        tail_launches + w_tail_calls)
+        tail_launches + w_tail_calls + serve_tail_calls)
     log("parity", "decode_compact (rows) == plain, exact: int32 and uint16 edge rows "
         "(0 tokens, 16-byte entries, 1 to 100 tokens and the corpus's longest "
         f"string of {tok_counts[longest]}), M=0 (no launch), an output cut short "
@@ -1693,7 +2167,8 @@ def main() -> int:
     # scan(0, n), the scan after compact() and the opened store's scan(0, n)
     # each read the whole mirror; every other stream launch reads a range of
     # at most a segment's strings (but the persist phase's writable store's
-    # three scans of its whole, a third of the corpus, counted here too)
+    # three scans of its whole, a third of the corpus, and the serve phase's
+    # scan of each shard's whole, a quarter, counted here too)
     whole_launches = 3
     stream_launches = {"full stream, uint16": stream_full_launches,
                        "full stream, int32": 0, "scan(0, n)": whole_launches,

@@ -7,7 +7,10 @@
     Decoder(dictionary).decode_all(corpus)                # stream kernel
 
 ``device`` defaults to ``"cuda"``; ``device="cpu"`` runs the kernels' plain
-PyTorch versions. Both give byte-identical results.
+PyTorch versions. Both give byte-identical results. ``Encoder`` also takes
+an :class:`~repro_torch.kernels.ops.OnPairDevice`, used as it is on its own
+device (a store's query and tail encoders share the store's: no second
+upload of the tables).
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ from repro_torch.kernels.ref import DeviceDict
 class Encoder:
     """Per-string encoder: every string is compressed on its own."""
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
-                 device: str | torch.device = "cuda"):
-        self._device = OnPairDevice(dictionary, device)
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact
+                 | OnPairDevice, device: str | torch.device = "cuda"):
+        self._device = (dictionary if isinstance(dictionary, OnPairDevice)
+                        else OnPairDevice(dictionary, device))
 
     def encode(self, strings: list[bytes]) -> CompressedCorpus:
         """Compress every string independently into one corpus."""

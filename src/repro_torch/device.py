@@ -21,3 +21,15 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {dev}")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two resolved devices name one device: a bare ``"cuda"``
+    means the current card."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device
+    return (cur() if a.index is None else a.index) == \
+        (cur() if b.index is None else b.index)

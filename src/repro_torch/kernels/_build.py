@@ -49,6 +49,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+#: guards the wrappers' launch counts: launches come from the caller's
+#: thread, a service's worker and the seal and demotion workers at once
+_count_lock = threading.Lock()
 #: what the last build did: library path, seconds, compiler output
 build_info: dict = {}
 
@@ -128,6 +131,12 @@ def expect(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def count(wrapper) -> None:
+    """Add one launch to ``wrapper.launches``, exactly, from any thread."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(rc: int, kernel: str) -> None:

@@ -18,6 +18,8 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import _build, ref
@@ -58,7 +60,7 @@ def _launch_rows(tokens, starts, ids, counts, max_count, out_start, mat16,
             mat16.shape[0], out.data_ptr(), out.numel(), out_len.data_ptr(), M,
             stream)
     _build.check(rc, "decode_compact")
-    decode_compact.launches += 1
+    _build.count(decode_compact)
 
 
 def decode_rows(tokens: torch.Tensor, starts: torch.Tensor,
@@ -152,18 +154,24 @@ decode_compact.launches = 0
 _STREAM_TILE = 2048
 #: the stream kernel's zeroed scratch (a ticket, a done counter, a status
 #: word per tile) per (device, stream): each call leaves it zeroed, so calls
-#: on one stream share it, and calls on two streams never do
+#: on one stream share it, and calls on two streams never do. Host threads
+#: that launch on one stream (a service's worker and its caller) share it
+#: too: their launches run one after another on the card
 _stream_scratch: dict[tuple[int, int], torch.Tensor] = {}
+_scratch_lock = threading.Lock()
 
 
 def _scratch(dev: torch.device, stream: int, words: int) -> torch.Tensor:
     key = (dev.index, stream)
-    buf = _stream_scratch.get(key)
-    if buf is None or buf.numel() < words:
-        have = 0 if buf is None else buf.numel()
-        buf = torch.zeros(max(words, 2 * have, 256), dtype=torch.int64, device=dev)
-        _stream_scratch[key] = buf
-    return buf
+    with _scratch_lock:
+        buf = _stream_scratch.get(key)
+        if buf is None or buf.numel() < words:
+            # a smaller buffer a launch still holds is freed to this stream
+            # only, so no later allocation reuses it before that launch ends
+            have = 0 if buf is None else buf.numel()
+            buf = torch.zeros(max(words, 2 * have, 256), dtype=torch.int64, device=dev)
+            _stream_scratch[key] = buf
+        return buf
 
 
 def decode_tokens(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
@@ -211,7 +219,7 @@ def decode_tokens(tokens: torch.Tensor, n_tokens: int, mat16: torch.Tensor,
             lens.data_ptr(), out.data_ptr(), out_len.data_ptr(), scratch.data_ptr(),
             scratch.numel(), T, n, max_out, stream)
     _build.check(rc, "decode_tokens")
-    decode_tokens.launches += 1
+    _build.count(decode_tokens)
     return out, out_len
 
 

@@ -60,7 +60,7 @@ def encode_batch(data: torch.Tensor, lens: torch.Tensor, dd: DeviceDict,
             B, Lp, max_tokens, dd.s_lo.shape[0], dd.p_lo.shape[0],
             dd.s_probe_max, dd.p_probe_max, dd.max_bucket, int(aligned), stream)
     _build.check(rc, "encode_batch")
-    encode_batch.launches += 1
+    _build.count(encode_batch)
     return tokens, n_tokens
 
 

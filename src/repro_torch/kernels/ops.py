@@ -8,6 +8,8 @@ and write paths.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -97,12 +99,22 @@ class OnPairDevice:
 
     ``dictionary`` is a :class:`PackedDictionary` (uploaded here), a
     :class:`DeviceDict` already on ``device``, or a saved
-    :class:`DictArtifact` (see :meth:`from_artifact`).
+    :class:`DictArtifact` (see :meth:`from_artifact`), which it keeps as
+    ``artifact``.
+
+    One instance may serve several stores (the shards of a sharded store
+    share one upload of the tables), each under its own store lock: the
+    state it changes after construction, the encode length caps and the
+    lazy ``blob``, changes under the instance's own lock, and the caps list
+    is replaced, never changed in place.
     """
 
     def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        #: the saved artifact the tables came from, where one was given: a
+        #: store opened on this codec saves it as it is
+        self.artifact = dictionary if isinstance(dictionary, DictArtifact) else None
         if isinstance(dictionary, DictArtifact):
             if dictionary.codec != "onpair16":
                 raise ValueError(
@@ -124,6 +136,7 @@ class OnPairDevice:
             self.dictionary = dictionary
             self.dd = DeviceDict.build(dictionary, self.device)
         self._path = "cuda" if self.device.type == "cuda" else "ref"
+        self._lock = threading.Lock()  # guards encode_len_caps and _blob
         #: the entry lengths on the host, which size a decode's output
         #: before its launch
         self.host_lens = self.dd.lens.cpu().numpy().astype(np.int64)
@@ -162,24 +175,28 @@ class OnPairDevice:
         """The dictionary's entries back to back in id order (u8, on the
         host), the reference's ``PackedDictionary.blob``: the host
         dictionary's own, or built once from bare device tables."""
-        if self._blob is None:
-            d = self.dictionary
-            self._blob = (np.asarray(d.blob, dtype=np.uint8) if d is not None
-                          else np.frombuffer(b"".join(self.dd.entries()),
-                                             dtype=np.uint8))
-        return self._blob
+        with self._lock:
+            if self._blob is None:
+                d = self.dictionary
+                self._blob = (np.asarray(d.blob, dtype=np.uint8) if d is not None
+                              else np.frombuffer(b"".join(self.dd.entries()),
+                                                 dtype=np.uint8))
+            return self._blob
 
     # ----------------------------------------------------------- encode
     def _encode_cap(self, n: int) -> int:
-        """Smallest bucket capacity >= n bytes, growing the set by doubling."""
+        """Smallest bucket capacity >= n bytes, growing the set by doubling
+        (a new list under the lock, so a reader sees the old set or the new
+        one, whole)."""
         for cap in self.encode_len_caps:
             if n <= cap:
                 return cap
-        cap = self.encode_len_caps[-1]
-        while cap < n:
-            cap *= 2
-            self.encode_len_caps.append(cap)
-        return cap
+        with self._lock:
+            caps = list(self.encode_len_caps)
+            while caps[-1] < n:
+                caps.append(2 * caps[-1])
+            self.encode_len_caps = caps
+        return next(cap for cap in caps if n <= cap)
 
     def _encode_chunk(self, strings, cap: int) -> tuple[np.ndarray, np.ndarray]:
         """One launch at (len(strings), cap + 16) with ``max_tokens = cap``:

@@ -5,7 +5,8 @@ Stdlib only. The names match the reference's, so a dashboard reads both.
 
 from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
                                      MetricsRegistry)
-from repro_torch.obs.trace import TRACER, TraceContext, Tracer
+from repro_torch.obs.trace import (TRACER, TraceContext, Tracer, new_trace_id,
+                                   trace_dump)
 
 __all__ = [
     "REGISTRY",
@@ -16,4 +17,6 @@ __all__ = [
     "TRACER",
     "TraceContext",
     "Tracer",
+    "new_trace_id",
+    "trace_dump",
 ]

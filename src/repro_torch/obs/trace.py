@@ -8,7 +8,10 @@ shape annotated) — linked by parent span ids.
 :meth:`Tracer.span` opens a child of the thread's ambient context and
 activates itself for the body, so nested calls need no plumbing. When *no*
 ambient context exists and ``root=False``, ``span`` is a no-op: untraced hot
-paths pay one ``getattr``.
+paths pay one ``getattr``. Queue hops (the micro-batching service) carry a
+:class:`TraceContext` value instead: :meth:`Tracer.activate` installs it on
+the worker thread, and :meth:`Tracer.record_child` books a span whose
+timestamps are known only after the fact (the coalesce wait).
 
 Finished spans land in a bounded ring (constant memory);
 :meth:`Tracer.trace_dump` groups the ring by trace id and returns the
@@ -47,9 +50,34 @@ class Tracer:
         self._ids = itertools.count(1)  # next() is atomic under the GIL
         self._epoch = time.perf_counter()
 
+    # ------------------------------------------------------------- context
     def current(self) -> TraceContext | None:
         return getattr(self._tls, "ctx", None)
 
+    def activate(self, ctx: TraceContext | None) -> TraceContext | None:
+        """Install ``ctx`` as this thread's ambient context; returns the
+        previous one for :meth:`restore` (always pair them)."""
+        prev = self.current()
+        self._tls.ctx = ctx
+        return prev
+
+    def restore(self, prev: TraceContext | None) -> None:
+        self._tls.ctx = prev
+
+    def new_context(
+        self, parent: TraceContext | None = None, *, inherit: bool = True
+    ) -> tuple[TraceContext, int]:
+        """Allocate a span context: child of ``parent`` (default: the
+        ambient context) or a fresh trace root. Returns ``(ctx,
+        parent_span_id)``; parent id 0 marks a root span."""
+        if parent is None and inherit:
+            parent = self.current()
+        if parent is None:
+            return TraceContext(new_trace_id(), next(self._ids)), 0
+        return (TraceContext(parent.trace_id, next(self._ids)),
+                parent.span_id)
+
+    # ------------------------------------------------------------ recording
     def record(self, name: str, ctx: TraceContext, parent_id: int,
                start_s: float, duration_s: float, **annotations) -> None:
         """Book one finished span with explicit ``perf_counter`` times."""
@@ -63,6 +91,15 @@ class Tracer:
             "annotations": annotations,
         })
 
+    def record_child(self, name: str, parent: TraceContext | None,
+                     start_s: float, duration_s: float,
+                     **annotations) -> TraceContext:
+        """Allocate and book a child span of ``parent`` in one call (queue
+        hops, where the span's lifetime is known only after the fact)."""
+        ctx, pid = self.new_context(parent, inherit=parent is not None)
+        self.record(name, ctx, pid, start_s, duration_s, **annotations)
+        return ctx
+
     @contextmanager
     def span(self, name: str, *, root: bool = False, **annotations):
         """Timed section as a child of the ambient context.
@@ -75,19 +112,17 @@ class Tracer:
         if parent is None and not root:
             yield None
             return
-        if parent is None:
-            ctx, pid = TraceContext(new_trace_id(), next(self._ids)), 0
-        else:
-            ctx, pid = TraceContext(parent.trace_id, next(self._ids)), parent.span_id
-        self._tls.ctx = ctx
+        ctx, pid = self.new_context(parent)
+        prev = self.activate(ctx)
         t0 = time.perf_counter()
         try:
             yield ctx
         finally:
-            self._tls.ctx = parent
+            self.restore(prev)
             self.record(name, ctx, pid, t0, time.perf_counter() - t0,
                         **annotations)
 
+    # -------------------------------------------------------------- reading
     def trace_dump(self, n: int = 16) -> list[dict]:
         """The ``n`` slowest recent traces (slowest first), each with its
         spans in start order."""
@@ -109,6 +144,14 @@ class Tracer:
         traces.sort(key=lambda t: -t["duration_us"])
         return traces[: int(n)]
 
+    def clear(self) -> None:
+        self._spans.clear()
+
 
 #: the process-wide tracer every serving module records into
 TRACER = Tracer()
+
+
+def trace_dump(n: int = 16) -> list[dict]:
+    """Module-level shortcut onto the process tracer's slow-request ring."""
+    return TRACER.trace_dump(n)

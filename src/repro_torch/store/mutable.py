@@ -91,7 +91,8 @@ class MutableStringStore(CompressedStringStore):
     #: swapping the dictionary between parse and ingest invalidates the batch)
     _MAX_ENCODE_RETRIES = 3
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact
+                 | OnPairDevice,
                  corpus: CompressedCorpus | None = None, *,
                  config: OnPairConfig | None = None,
                  drift_threshold: float = 0.2, auto_compact: bool = False,
@@ -144,7 +145,7 @@ class MutableStringStore(CompressedStringStore):
         ``device``'s tables, with the kernel library built now so the first
         extend() pays no ``nvcc``. compact() calls this outside the lock."""
         device.warm_encode()
-        return Encoder(device.dd, device=device.device)
+        return Encoder(device)
 
     # -------------------------------------------------------------- tail hooks
     def _tail_n(self) -> int:

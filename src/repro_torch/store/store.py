@@ -57,7 +57,7 @@ from repro_torch.core.index import (SegmentIndex, dump_indexes, fingerprints,
                                     load_indexes)
 from repro_torch.core.onpair import OnPairConfig, train_dictionary
 from repro_torch.core.packed import PackedDictionary
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, same_device
 from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.kernels.ref import DeviceDict
 from repro_torch.obs import TRACER
@@ -105,7 +105,12 @@ class CompressedStringStore:
 
     ``dictionary`` is the frozen :class:`PackedDictionary` the corpus was
     encoded with, its tables already on ``device`` as a :class:`DeviceDict`
-    (see :mod:`repro_torch.convert`), or a saved :class:`DictArtifact`.
+    (see :mod:`repro_torch.convert`), a saved :class:`DictArtifact`, or an
+    :class:`OnPairDevice` opened from one: the store saves that codec's
+    artifact and decodes and encodes on it, with no upload of its own, so
+    several stores (the shards of :mod:`repro_torch.distributed`) share one
+    copy of the tables on the card. ``device`` then defaults to the codec's
+    and must name the same device.
     ``config`` is the training configuration the dictionary came from, where
     it is known (``build`` passes its own, an artifact carries one); the
     writable store retrains with it, and ``save`` writes it into the
@@ -116,10 +121,11 @@ class CompressedStringStore:
     #: when a swap lands between their encode and the probe
     version_id = 0
 
-    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact,
+    def __init__(self, dictionary: PackedDictionary | DeviceDict | DictArtifact
+                 | OnPairDevice,
                  corpus: CompressedCorpus, *,
                  config: OnPairConfig | None = None,
-                 device: str | torch.device = "cuda",
+                 device: str | torch.device | None = None,
                  strings_per_segment: int = 4096,
                  cache_bytes: int = 8 << 20, batch_size: int = 256,
                  num_buckets: int = 4):
@@ -128,11 +134,20 @@ class CompressedStringStore:
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self._artifact: DictArtifact | None = None
+        if isinstance(dictionary, OnPairDevice):
+            if device is not None and not same_device(torch.device(device),
+                                                      dictionary.device):
+                raise ValueError(f"the shared device codec is on "
+                                 f"{dictionary.device}, not {device}")
+            self._device = dictionary
+            dictionary = dictionary.artifact
+        else:
+            self._device = OnPairDevice(dictionary,
+                                        "cuda" if device is None else device)
         if isinstance(dictionary, DictArtifact):
             self._artifact = dictionary
             if config is None and dictionary.config:
                 config = OnPairConfig(**dictionary.config)
-        self._device = OnPairDevice(dictionary, device)
         self.config = config
         self.backend = self._device.device.type
         self.corpus = corpus
@@ -248,10 +263,12 @@ class CompressedStringStore:
             return json.load(f)
 
     @classmethod
-    def open_corpus_dir(cls, dir_path: str, source: DictArtifact,
+    def open_corpus_dir(cls, dir_path: str,
+                        source: DictArtifact | OnPairDevice,
                         mmap: bool = True, **overrides) -> "CompressedStringStore":
         """Open a directory holding corpus.rpc + store.json against an
-        already-loaded artifact."""
+        already-loaded artifact, or a device codec opened from one that
+        several stores share (the shards of one sharded directory)."""
         meta = cls._read_meta(dir_path)
         corpus = CompressedCorpus.load(
             os.path.join(dir_path, cls._CORPUS_FILE), mmap=mmap)
@@ -584,8 +601,7 @@ class CompressedStringStore:
         writable store returns its tail encoder instead (the same
         generation's tables)."""
         if self._locate_encoder is None:
-            self._locate_encoder = Encoder(self._device.dd,
-                                           device=self._device.device)
+            self._locate_encoder = Encoder(self._device)
         return self._locate_encoder
 
     def _encode_queries(self, strings: list[bytes]) -> CompressedCorpus:

@@ -376,7 +376,7 @@ class TierManager:
                     continue
                 try:
                     header, arrays = read_container(path, mmap=True)
-                except (OSError, ValueError, KeyError):
+                except Exception:  # any unreadable container stays hot
                     continue
                 if header.get("kind") != COLD_KIND \
                         or header.get("ref_crc") != ref_crc \

@@ -8,7 +8,9 @@ byte for byte (multiget, get, scan, locate, scan_prefix), memory_bytes
 after demotion, save/open with cold files, promotion (explicit, by a read
 burst, after ``tick``'s off-thread demotions), compact() folding the tier
 back, the writable store's save/open with a cold tier and a tail, the
-read-rate EWMA, ``tier_op``, the async-seal cases, and what is the port's
+read-rate EWMA, ``tier_op``, the async-seal cases, a saved store whose
+cold file is cut short or has a garbage header (both packages open it with
+that segment hot), and what is the port's
 own: the device mirror after evict/restore, scans that split at cold
 segments, the tier snapshot, and the RLZ reference over bare device
 tables."""
@@ -31,11 +33,12 @@ from repro.store import tier_op as ref_tier_op
 from repro.store.drift import segment_report as ref_segment_report
 from repro_torch import convert
 from repro_torch.core import DictArtifact, Encoder
-from repro_torch.core.artifact import read_container
+from repro_torch.core.artifact import MAGIC, read_container
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.core.rlz import RLZCodec, decode_ids, decode_range, rlz_nbytes
 from repro_torch.data.synth import load_dataset
 from repro_torch.kernels import ref
+from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.obs import REGISTRY, Gauge
 from repro_torch.store import (CompressedStringStore, DriftMonitor,
                                MutableStringStore, tier_op)
@@ -341,6 +344,88 @@ def test_mutable_save_open_roundtrip_with_cold_tail(port_art, ref_art, titles,
     ids = re.extend(titles[350:400])              # still writable
     assert ids == list(range(350, 400))
     assert re.get(399) == titles[399]
+
+
+# ------------------------------------------------ a damaged cold file
+def _cold_header_end(path: str) -> int:
+    """Bytes of a cold container up to the end of its JSON header."""
+    with open(path, "rb") as f:
+        head = f.read(len(MAGIC) + 8)
+    return len(MAGIC) + 8 + int(np.frombuffer(head[len(MAGIC) + 4:], "<u4")[0])
+
+
+def _damages(path: str):
+    """(label, bytes) of every damaged copy of the container at ``path``:
+    cut at every length from 0 to past its header, or a header of garbage
+    after the magic."""
+    blob = open(path, "rb").read()
+    end = _cold_header_end(path)
+    for n in range(0, end + 24):
+        yield f"cut at {n} B", blob[:n]
+    hlen = np.frombuffer(blob[len(MAGIC) + 4:len(MAGIC) + 8], "<u4")
+    garbage = bytes(np.random.default_rng(3).integers(0, 256, int(hlen[0]),
+                                                      dtype=np.uint8))
+    yield "garbage header", blob[:len(MAGIC) + 8] + garbage + blob[end:]
+    yield "huge header length", (blob[:len(MAGIC) + 4]
+                                 + np.uint32(2**31).tobytes() + blob[len(MAGIC) + 8:])
+
+
+def test_damaged_cold_file_opens_hot_in_both_packages(port_art, ref_art, titles,
+                                                      tmp_path):
+    """A saved store whose cold container cannot be read opens with that
+    segment hot, in either package, and serves the same bytes: the
+    contract the index sidecar has."""
+    n = 600
+    store, _ = _pair(port_art, ref_art, titles[:n])
+    store.enable_tiering(**COLD).demote(1)
+    d = str(tmp_path / "damaged")
+    store.save(d)
+    cold = os.path.join(d, "cold-0001.rlz")
+    assert os.path.exists(cold)
+    # every cut goes through the open path that re-adopts the cold set
+    # (open_corpus_dir), against sources loaded once
+    art = DictArtifact.load(os.path.join(d, "dictionary.rpa"))
+    port_src = OnPairDevice(art, CPU)
+    ref_src = (ref_art, registry.codec_from_artifact(ref_art))
+    seg1 = list(range(SPS - 2, 2 * SPS + 2))
+    for label, data in _damages(cold):
+        with open(cold, "wb") as f:
+            f.write(data)
+        got = CompressedStringStore.open_corpus_dir(d, port_src, device=CPU)
+        want = RefStore.open_corpus_dir(d, ref_src, backend="numpy")
+        assert got.tier.cold == {} and want.tier.cold == {}, label
+        assert got.resident.n_bytes == got.segments.payload_bytes, label
+        assert got.multiget(seg1) == want.multiget(seg1) == \
+            [titles[i] for i in seg1], label
+        if label in ("cut at 0 B", "cut at 10 B", "garbage header"):
+            # the whole open of either package, and the full reads
+            full = CompressedStringStore.open(d, device=CPU)
+            ref_full = RefStore.open(d, backend="numpy")
+            assert full.tier.cold == {} and ref_full.tier.cold == {}, label
+            assert full.scan(0, n) == ref_full.scan(0, n) == titles[:n], label
+
+
+def test_damaged_cold_file_opens_hot_in_both_writable_stores(port_art, ref_art,
+                                                             titles, tmp_path):
+    store, _ = _mutable_pair(port_art, ref_art, titles[:300])
+    store.extend(titles[300:350])                 # an unsealed tail too
+    store.enable_tiering(**COLD).demote(1)
+    d = str(tmp_path / "mdamaged")
+    store.save(d)
+    cold = os.path.join(d, "v0000", "cold-0001.rlz")
+    end = _cold_header_end(cold)
+    for label, data in _damages(cold):
+        if label.startswith("cut at ") and int(label.split()[2]) not in (
+                0, 8, 10, 12, end - 1, end, end + 8):
+            continue
+        with open(cold, "wb") as f:
+            f.write(data)
+        got = MutableStringStore.open(d, device=CPU)
+        want = RefMutable.open(d, backend="numpy")
+        assert got.tier.cold == {} and want.tier.cold == {}, label
+        assert got.scan(0, 350) == want.scan(0, 350) == titles[:350], label
+        assert got.extend(titles[350:360]) == want.extend(titles[350:360]), label
+        assert got.multiget(list(range(340, 360))) == titles[340:360], label
 
 
 # ---------------------------------------------------- temperature (EWMA)
