@@ -1,21 +1,33 @@
-"""The compressed-corpus layout every codec produces, and its file form."""
+"""The interface every codec implements, the compressed-corpus layout they
+all produce, and its file form.
+
+A *corpus* is a list of independent byte strings (paper: rows of a string
+column). Codecs turn it into a :class:`CompressedCorpus` — one payload blob
+plus per-string byte offsets (per-block for the block codecs) — so ratio,
+compression speed, decompression speed and random access are measured the
+same way across OnPair/OnPair16/BPE/FSST/LZ-block/RAW.
+"""
 
 from __future__ import annotations
 
+import abc
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.core.artifact import (dump_container, load_container,
-                                       read_container, write_container)
+from repro_torch.core.artifact import (DictArtifact, dump_container,
+                                       load_container, read_container,
+                                       write_container)
 
 
 @dataclass
 class CompressedCorpus:
     """Concatenated compressed strings + offsets (random-access layout).
 
-    For OnPair16 each string's slice of ``payload`` is a stream of
-    little-endian u16 token IDs, so every per-string slice has even length.
+    For the token-stream codecs (OnPair, OnPair16, BPE) each string's slice
+    of ``payload`` is a stream of little-endian u16 token IDs, so every
+    per-string slice has even length. The block codecs' offsets index
+    blocks, and their meta maps strings to blocks.
     """
 
     payload: np.ndarray            # u8[total_compressed_bytes]
@@ -120,3 +132,89 @@ class CompressedCorpus:
     @classmethod
     def from_bytes(cls, data: bytes) -> "CompressedCorpus":
         return cls._from_parsed(*load_container(data))
+
+
+@dataclass
+class TrainStats:
+    train_seconds: float = 0.0
+    sample_bytes: int = 0
+    dict_entries: int = 0
+    dict_data_bytes: int = 0
+    dict_total_bytes: int = 0
+
+
+class StringCompressor(abc.ABC):
+    """Train-once, compress/decompress-many string codec on the host.
+
+    The trained state freezes into an immutable :class:`DictArtifact`
+    (``to_artifact`` / ``from_artifact``), so a dictionary trained on one
+    host reopens on another without retraining.
+    """
+
+    name: str = "base"
+
+    @abc.abstractmethod
+    def train(self, strings: list[bytes], dataset_bytes: int | None = None) -> TrainStats:
+        """Build the dictionary/model from (a sample of) the corpus."""
+
+    @abc.abstractmethod
+    def compress(self, strings: list[bytes]) -> CompressedCorpus:
+        """Compress every string independently (field-level) or in blocks."""
+
+    @abc.abstractmethod
+    def decompress_all(self, corpus: CompressedCorpus) -> bytes:
+        """Sequentially decode the full corpus; returns concatenated strings."""
+
+    @abc.abstractmethod
+    def access(self, corpus: CompressedCorpus, i: int) -> bytes:
+        """Random access: materialise string ``i`` alone."""
+
+    def to_artifact(self) -> DictArtifact:
+        """Freeze the trained state into a serializable artifact."""
+        raise NotImplementedError(f"{self.name}: to_artifact not implemented")
+
+    @classmethod
+    def from_artifact(cls, artifact: DictArtifact) -> "StringCompressor":
+        """Reconstruct a ready codec from an artifact (no retraining)."""
+        raise NotImplementedError(f"{cls.__name__}: from_artifact not implemented")
+
+
+def pack_corpus(parts: list[bytes], raw_bytes: int, **meta) -> CompressedCorpus:
+    """Per-string payloads -> one corpus: each part is copied once, straight
+    into the payload array."""
+    offsets = np.zeros(len(parts) + 1, dtype=np.int64)
+    np.cumsum([len(p) for p in parts], out=offsets[1:])
+    payload = np.empty(int(offsets[-1]), dtype=np.uint8)
+    view = memoryview(payload.data)
+    pos = 0
+    for p in parts:
+        view[pos : pos + len(p)] = p
+        pos += len(p)
+    return CompressedCorpus(payload=payload, offsets=offsets,
+                            raw_bytes=raw_bytes, meta=dict(meta))
+
+
+class RawCompressor(StringCompressor):
+    """Uncompressed baseline (paper's RAW row)."""
+
+    name = "raw"
+
+    def train(self, strings, dataset_bytes=None) -> TrainStats:
+        return TrainStats()
+
+    def compress(self, strings):
+        return pack_corpus(strings, sum(len(s) for s in strings),
+                           compressor=self.name)
+
+    def decompress_all(self, corpus):
+        return corpus.payload.tobytes()
+
+    def access(self, corpus, i):
+        return corpus.string_payload(i)
+
+    def to_artifact(self) -> DictArtifact:
+        return DictArtifact.from_config("raw")
+
+    @classmethod
+    def from_artifact(cls, artifact: DictArtifact) -> "RawCompressor":
+        return cls()

@@ -126,8 +126,8 @@ class DictArtifact:
 
     A store's ``artifact`` produces one; :class:`~repro_torch.core.codec.Encoder`
     / :class:`~repro_torch.core.codec.Decoder` consume one — on any host,
-    without retraining. The port's kernels take ``"onpair16"`` artifacts
-    only; the container itself reads any codec's.
+    without retraining. The port's kernels take ``"onpair16"`` artifacts;
+    every other codec's runs on its host codec (``registry``).
     """
 
     codec: str                                  # codec name, e.g. "onpair16"

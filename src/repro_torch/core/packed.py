@@ -1,5 +1,5 @@
-"""Frozen OnPair16 dictionary: decode layout + static LPM arrays (paper §3.4.3,
-§3.5, Fig. 5/7).
+"""Frozen OnPair/OnPair16 dictionary: decode layout + static LPM arrays
+(paper §3.4.3, §3.5, Fig. 5/7).
 
 After training, the dictionary is frozen into:
 
@@ -11,10 +11,14 @@ After training, the dictionary is frozen into:
   open-addressing hash tables, so lookups are plain loads and probing is a
   bounded loop. Packed u64 values are stored as (lo, hi) u32 pairs.
 
-The arrays are bit-identical to the reference's ``PackedDictionary`` for the
-fields the device path reads (the tests pin that field by field). The exact
-long-entry table and the suffix masks, which only the reference's numpy
-batch parser reads, are not built: the port encodes on the kernel.
+Every array is bit-identical to the reference's ``PackedDictionary``, for
+bounded (OnPair16) and unbounded (OnPair, BPE) dictionaries alike (the tests
+pin that field by field). The device kernels read the decode matrix and the
+short and prefix tiers of OnPair16 dictionaries; the host codecs read the
+rest: the suffix masks and the exact long-entry table feed the host batch
+parse (:func:`repro_torch.core.lpm.parse_batch`), and ``decode_tokens`` /
+``decode_string`` are the host decode, which also serves entries longer
+than 16 bytes.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.core.artifact import DictArtifact
+
+_ARANGE16 = np.arange(16, dtype=np.int64)
 
 U32 = np.uint32
 _M32 = 0xFFFFFFFF
@@ -42,6 +48,12 @@ def mix32(x: int) -> int:
 def hash_key(lo: int, hi: int, length: int) -> int:
     """Hash of a packed (lo, hi, len) key; the kernels must match it exactly."""
     return mix32(lo ^ mix32(hi ^ mix32(length)))
+
+
+def hash_key_long(lo: int, hi: int, lo2: int, hi2: int, length: int) -> int:
+    """Hash of a full 16-byte packed key (bounded long entries); must match
+    the vectorised probe in core.lpm exactly."""
+    return mix32(lo ^ mix32(hi ^ mix32(lo2 ^ mix32(hi2 ^ mix32(length)))))
 
 
 def split_u64(value: int) -> tuple[int, int]:
@@ -84,9 +96,34 @@ def _build_table(keys: list[tuple[int, int, int]], payloads: list[int],
     return tbl_lo, tbl_hi, tbl_len, tbl_payload, max_probes
 
 
+def _build_table_long(keys: list[tuple[int, int, int, int, int]],
+                      payloads: list[int]):
+    """Open-addressing table over full 16-byte packed keys (long entries)."""
+    n = len(keys)
+    size = 16
+    while size < 2 * max(n, 1):
+        size *= 2
+    tbl = [np.zeros(size, dtype=U32) for _ in range(4)]
+    tbl_len = np.zeros(size, dtype=np.int32)
+    tbl_payload = np.full(size, -1, dtype=np.int32)
+    mask = size - 1
+    max_probes = 1
+    for (lo, hi, lo2, hi2, length), payload in zip(keys, payloads):
+        slot = hash_key_long(lo, hi, lo2, hi2, length) & mask
+        probes = 1
+        while tbl_len[slot] != 0:
+            slot = (slot + 1) & mask
+            probes += 1
+        tbl[0][slot], tbl[1][slot], tbl[2][slot], tbl[3][slot] = lo, hi, lo2, hi2
+        tbl_len[slot] = length
+        tbl_payload[slot] = payload
+        max_probes = max(max_probes, probes)
+    return tbl[0], tbl[1], tbl[2], tbl[3], tbl_len, tbl_payload, max_probes
+
+
 @dataclass
 class PackedDictionary:
-    """Frozen OnPair16 dictionary with decode + static-LPM layouts."""
+    """Frozen OnPair/OnPair16 dictionary with decode + static-LPM layouts."""
 
     entries: list[bytes]
     variant16: bool
@@ -115,8 +152,25 @@ class PackedDictionary:
     max_bucket_size: int
     suf_lo: np.ndarray        # u32[M]  first 8 suffix bytes, packed LE
     suf_hi: np.ndarray
-    suf_len: np.ndarray       # i32[M]
+    suf_len: np.ndarray       # i32[M]  full suffix length (may exceed 8 for OnPair)
     suf_tok: np.ndarray       # i32[M]
+    # byte masks selecting each suffix's live bytes of (suf_lo, suf_hi), so
+    # the batch parse compares without per-call mask math
+    suf_mlo: np.ndarray       # u32[M]
+    suf_mhi: np.ndarray       # u32[M]
+
+    # --- static LPM: exact long-entry table (9..16-byte entries) ---
+    # Every long entry of a bounded dictionary fits one 16-byte window, so
+    # the batch parse replaces the bucket *scan* with 8 exact hash probes
+    # (lengths 16 down to 9). Only consulted when ``variant16`` (unbounded
+    # entries still need the bucket scan).
+    l_lo: np.ndarray          # u32  entry bytes 0..3, packed LE
+    l_hi: np.ndarray          # u32  entry bytes 4..7
+    l_lo2: np.ndarray         # u32  entry bytes 8..11 (zero padded)
+    l_hi2: np.ndarray         # u32  entry bytes 12..15 (zero padded)
+    l_len: np.ndarray         # i32  0 = empty slot
+    l_tok: np.ndarray         # i32
+    l_probe_max: int
 
     @classmethod
     def build(cls, entries: list[bytes]) -> "PackedDictionary":
@@ -164,6 +218,24 @@ class PackedDictionary:
         p_lo, p_hi, p_len, p_bucket, p_probe_max = _build_table(
             prefix_keys, bucket_ids, empty_payload=-1)
 
+        suf_len_arr = np.array(suf_len_l or [0], dtype=np.int32)
+        mlo_n = np.clip(suf_len_arr, 0, 4).astype(np.uint64)
+        mhi_n = np.clip(suf_len_arr - 4, 0, 4).astype(np.uint64)
+        one = np.uint64(1)
+        eight = np.uint64(8)
+
+        # exact long-entry table: every 9..16-byte entry keyed by its full
+        # packed bytes (>16-byte entries cannot use it and are left out)
+        long_keys, long_payloads = [], []
+        for tid, e in enumerate(entries):
+            if 8 < len(e) <= 16:
+                lo, hi = _pack_lo_hi(e)
+                lo2, hi2 = _pack_lo_hi(e[8:])
+                long_keys.append((lo, hi, lo2, hi2, len(e)))
+                long_payloads.append(tid)
+        l_lo, l_hi, l_lo2, l_hi2, l_len, l_tok, l_probe_max = \
+            _build_table_long(long_keys, long_payloads)
+
         return cls(
             entries=entries, variant16=variant16,
             blob=blob, offsets=offsets, lens=lens, mat16=mat16,
@@ -176,8 +248,12 @@ class PackedDictionary:
             max_bucket_size=int(max(bucket_size_l, default=0)),
             suf_lo=np.array(suf_lo_l or [0], dtype=U32),
             suf_hi=np.array(suf_hi_l or [0], dtype=U32),
-            suf_len=np.array(suf_len_l or [0], dtype=np.int32),
+            suf_len=suf_len_arr,
             suf_tok=np.array(suf_tok_l or [0], dtype=np.int32),
+            suf_mlo=((one << (mlo_n * eight)) - one).astype(U32),
+            suf_mhi=((one << (mhi_n * eight)) - one).astype(U32),
+            l_lo=l_lo, l_hi=l_hi, l_lo2=l_lo2, l_hi2=l_hi2, l_len=l_len,
+            l_tok=l_tok, l_probe_max=l_probe_max,
         )
 
     # ------------------------------------------------------------- accounting
@@ -204,6 +280,56 @@ class PackedDictionary:
                   self.bucket_start, self.bucket_size, self.suf_lo,
                   self.suf_hi, self.suf_len, self.suf_tok)
         return self.total_bytes + sum(a.nbytes for a in arrays)
+
+    # ----------------------------------------------------------------- decode
+    def decode_tokens(self, tokens: np.ndarray) -> bytes:
+        """Vectorised Algorithm 3 over a full token stream, on the host.
+
+        Every token writes its (zero-padded) first 16 bytes through a masked
+        scatter (the numpy form of the unconditional 16-byte copy); the
+        entries longer than 16 bytes (unbounded OnPair and BPE only) then
+        write their tails.
+        """
+        tokens = np.asarray(tokens, dtype=np.int64)
+        if tokens.size == 0:
+            return b""
+        if tokens.size <= 64:
+            # one string: a plain join beats the vectorised passes' fixed
+            # numpy cost
+            return b"".join(map(self.entries.__getitem__, tokens.tolist()))
+        if self.variant16:
+            # every entry fits one mat16 row, so a row-major select of each
+            # row's first len(t) bytes IS the concatenated output
+            rows = self.mat16[tokens]
+            mask = _ARANGE16[None, :] < self.lens[tokens, None]
+            return rows[mask].tobytes()
+        lens = self.lens[tokens].astype(np.int64)
+        ends = np.cumsum(lens)
+        starts = ends - lens
+        total = int(ends[-1])
+        out = np.zeros(total + 16, dtype=np.uint8)  # +16: the row overhang
+        rows = self.mat16[tokens]                   # (T, 16)
+        clamped = np.minimum(lens, 16)
+        # one exact vectorised write per distinct clamped length (<= 16)
+        for length in np.unique(clamped):
+            L = int(length)
+            sel = np.nonzero(clamped == L)[0]
+            idx = starts[sel, None] + _ARANGE16[None, :L]
+            out[idx.reshape(-1)] = rows[sel, :L].reshape(-1)
+        # the >16-byte entries' tails, one by one
+        for t in np.nonzero(lens > 16)[0]:
+            tid = tokens[t]
+            o = int(self.offsets[tid])
+            tail = self.blob[o + 16 : o + int(self.lens[tid])]
+            s = int(starts[t]) + 16
+            out[s : s + tail.size] = tail
+        return out[:total].tobytes()
+
+    def decode_string(self, compressed: bytes) -> bytes:
+        """Random-access decode of one independently-compressed string."""
+        tokens = np.frombuffer(compressed, dtype="<u2")
+        parts = self.entries
+        return b"".join(parts[t] for t in tokens)
 
     # -------------------------------------------------------------- serialise
     # The persistent form of a dictionary is a DictArtifact (table + codec

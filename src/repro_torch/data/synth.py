@@ -168,3 +168,9 @@ def load_dataset(name: str, target_bytes: int = 8 << 20, seed: int | None = None
         return gen(target_bytes)
     return gen(target_bytes, seed=seed)
 
+
+
+def dataset_stats(strings: list[bytes]) -> dict:
+    lens = np.array([len(s) for s in strings])
+    return {"rows": len(strings), "bytes": int(lens.sum()),
+            "avg_len": float(lens.mean()), "mib": float(lens.sum() / (1 << 20))}

@@ -14,7 +14,10 @@ On the card the shared dictionary is one upload: :func:`open_shard` and
 :meth:`ShardedStringStore.open` build one
 :class:`~repro_torch.kernels.ops.OnPairDevice` on the requested device and
 open every shard against it, so N shards hold one copy of the tables, not N.
-A shard that retrains (``compact``) builds a device codec of its own.
+A shard saved after appends keeps the shared dictionary, byte for byte, and
+reopens on the shared codec too; only a shard that retrained (``compact``)
+builds a device codec of its own. A sharded store of a host codec (OnPair,
+BPE) shares one host codec across its shards the same way.
 
 :class:`ShardRouter` holds the routing arithmetic (global id -> (shard,
 local id) via contiguous bounds, order-preserving per-shard ``multiget``
@@ -32,8 +35,9 @@ from itertools import islice
 
 import torch
 
+from repro_torch.core import registry
 from repro_torch.core.artifact import DictArtifact
-from repro_torch.device import resolve_device
+from repro_torch.core.codec import host_codec_for
 from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.store.mutable import MutableStringStore
 from repro_torch.store.store import CompressedStringStore, write_json_atomic
@@ -87,7 +91,8 @@ def save_sharded(store: CompressedStringStore, dir_path: str,
         <dir>/shard-0000/        corpus.rpc + store.json (openable alone)
         ...
     """
-    if store.artifact.codec != "onpair16":
+    caps = registry.capabilities(store.artifact.codec)
+    if not caps.token_stream:
         raise ValueError("sharding slices corpora on string boundaries; "
                          f"codec {store.artifact.codec!r} is not token_stream")
     os.makedirs(dir_path, exist_ok=True)
@@ -153,34 +158,52 @@ def manifest_replicas(dir_path: str) -> dict[int, list[tuple[str, int]]]:
             for k, v in manifest.get("replicas", {}).items()}
 
 
-def _shared_codec(dir_path: str, mmap: bool, device: torch.device) -> OnPairDevice:
-    """The sharded directory's dictionary, loaded once, and its tables
-    uploaded once to ``device``: the ``source`` every shard opens against."""
-    return OnPairDevice.from_artifact(
-        DictArtifact.load(os.path.join(dir_path, DICT_FILE), mmap=mmap), device)
+def _shared_codec(dir_path: str, mmap: bool, device):
+    """The sharded directory's dictionary, loaded once, as the ``source``
+    every shard opens against: for OnPair16 an :class:`OnPairDevice` with
+    its tables uploaded once to ``device`` (default ``"cuda"``), for a host
+    codec the ``(artifact, host codec)`` pair, built once."""
+    artifact = DictArtifact.load(os.path.join(dir_path, DICT_FILE), mmap=mmap)
+    host = host_codec_for(artifact, device)
+    if host is not None:
+        return artifact, host
+    return OnPairDevice.from_artifact(artifact,
+                                      "cuda" if device is None else device)
+
+
+def _same_file_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
 
 
 def open_shard(dir_path: str, shard: int, mmap: bool = True,
                source=None, writable: bool = False,
-               device: str | torch.device = "cuda",
+               device: str | torch.device | None = None,
                **overrides) -> CompressedStringStore:
     """What one serving host does: shared dictionary + its shard's corpus.
-    Pass ``source`` (an :class:`OnPairDevice` opened from the directory's
-    artifact) when opening several shards so the dictionary loads, and its
-    tables go up to the card, once; a bare artifact is uploaded for this
-    shard alone, and none loads the directory's. ``writable=True`` opens
+    Pass ``source`` (what ``_shared_codec`` opens from the directory's
+    artifact: an :class:`OnPairDevice`, or an ``(artifact, host codec)``
+    pair) when opening several shards so the dictionary loads, and its
+    tables go up to the card, once. ``device`` defaults to ``"cuda"`` for
+    OnPair16 and must be left out for a host codec. ``writable=True`` opens
     the shard as a :class:`MutableStringStore` so it accepts appends
-    against the shared frozen dictionary; once a writable shard has been saved or compacted it
-    owns a *versioned* layout (and its own dictionary generation, on a
-    device codec of its own), which takes precedence on reopen."""
-    device = resolve_device(device)
+    against the shared frozen dictionary. Once a writable shard has been
+    saved or compacted it owns a *versioned* layout, which takes precedence
+    on reopen: a generation whose ``dictionary.rpa`` holds the directory's
+    shared artifact byte for byte (a save of appends) opens on the shared
+    codec; a compacted one on a codec of its own."""
     shard_dir = os.path.join(dir_path, f"shard-{shard:04d}")
-    if CompressedStringStore._resolve_current(shard_dir) != shard_dir:
-        if not writable:  # read-only open of the shard's current generation
-            return CompressedStringStore.open(shard_dir, mmap=mmap,
-                                              device=device, **overrides)
-        return MutableStringStore.open(shard_dir, mmap=mmap, device=device,
-                                       **overrides)
+    current = CompressedStringStore._resolve_current(shard_dir)
+    if current != shard_dir:
+        if not _same_file_bytes(os.path.join(current, DICT_FILE),
+                                os.path.join(dir_path, DICT_FILE)):
+            source = None  # a compacted generation: its own dictionary
+        elif source is None:
+            source = _shared_codec(dir_path, mmap, device)
+        store_cls = MutableStringStore if writable else CompressedStringStore
+        # read-only opens take the shard's current generation
+        return store_cls.open(shard_dir, mmap=mmap, device=device,
+                              source=source, **overrides)
     if source is None:
         source = _shared_codec(dir_path, mmap, device)
     store_cls = MutableStringStore if writable else CompressedStringStore
@@ -431,7 +454,8 @@ class ShardedStringStore(ShardRouter):
     """Global-id router over per-shard stores (single-process form).
 
     The routing arithmetic of :class:`ShardRouter` with every shard store
-    open in this process, on one device codec that the shards share.
+    open in this process, on one codec that the shards share (the device
+    codec of OnPair16, or one host codec).
     """
 
     def __init__(self, stores: list[CompressedStringStore],
@@ -444,12 +468,11 @@ class ShardedStringStore(ShardRouter):
 
     @classmethod
     def open(cls, dir_path: str, mmap: bool = True, writable: bool = False,
-             device: str | torch.device = "cuda",
+             device: str | torch.device | None = None,
              **overrides) -> "ShardedStringStore":
         """Open every shard of a sharded directory (either package's) on
-        ``device``, against one load of the shared dictionary and one upload
-        of its tables."""
-        device = resolve_device(device)
+        ``device`` (default ``"cuda"``; none for a host codec), against one
+        load of the shared dictionary and one upload of its tables."""
         with open(os.path.join(dir_path, MANIFEST)) as f:
             manifest = json.load(f)
         source = _shared_codec(dir_path, mmap, device)

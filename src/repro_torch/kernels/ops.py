@@ -13,6 +13,7 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.core import registry
 from repro_torch.core.artifact import DictArtifact
 from repro_torch.core.packed import PackedDictionary
 from repro_torch.device import resolve_device
@@ -116,11 +117,12 @@ class OnPairDevice:
         #: store opened on this codec saves it as it is
         self.artifact = dictionary if isinstance(dictionary, DictArtifact) else None
         if isinstance(dictionary, DictArtifact):
-            if dictionary.codec != "onpair16":
+            if not registry.capabilities(dictionary.codec).device_decodable:
                 raise ValueError(
                     f"codec {dictionary.codec!r} is not device-decodable "
-                    "(registry capability); only bounded-entry token-stream "
-                    "dictionaries run on the kernels")
+                    "(registry capability); run it on its host codec, "
+                    "repro_torch.core.registry.codec_from_artifact(artifact), "
+                    "as Encoder, Decoder and the stores do for it")
             dictionary = PackedDictionary.from_artifact(dictionary)
         #: the host dictionary, where one was given (None for bare tables)
         self.dictionary: PackedDictionary | None = None
@@ -131,8 +133,11 @@ class OnPairDevice:
             self.dd = dictionary
         else:
             if not dictionary.variant16:
-                raise ValueError("device kernels target OnPair16 (<=16B entries); "
-                                 "unbounded OnPair stays on the host path")
+                raise ValueError(
+                    "device kernels target OnPair16 (<=16B entries); an "
+                    "unbounded dictionary runs on the host: freeze it as an "
+                    "'onpair' artifact and open its codec with "
+                    "repro_torch.core.registry.codec_from_artifact")
             self.dictionary = dictionary
             self.dd = DeviceDict.build(dictionary, self.device)
         self._path = "cuda" if self.device.type == "cuda" else "ref"

@@ -1,7 +1,10 @@
-"""The compressed string store: batched random access on the device, the
-writable store over it (append into a tail, seal, compact on drift), reverse
-lookup (locate, scan_prefix), the RLZ cold tier, save/open in the
-reference's layout, and the micro-batching service in front of a store."""
+"""The compressed string store: batched random access on the device for
+OnPair16 and on the host for the other token-stream codecs (OnPair, BPE),
+the writable store over it (append into a tail, seal, compact on drift),
+reverse lookup (locate, scan_prefix), the RLZ cold tier, save/open in the
+reference's layout, and the micro-batching service in front of a store.
+Which path a store takes follows its codec's registry capability
+(:mod:`repro_torch.core.registry`)."""
 
 from repro_torch.store.cache import LRUCache
 from repro_torch.store.drift import DriftMonitor

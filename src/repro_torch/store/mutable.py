@@ -7,7 +7,9 @@ The writable store layers that lifecycle over
 
 * ``append``/``extend`` parse incoming strings through the encode kernel
   (the port's :class:`~repro_torch.core.codec.Encoder`, sharing the store's
-  device tables) into an open tail of per-string token-stream payloads;
+  device tables) into an open tail of per-string token-stream payloads; a
+  store of a host codec (OnPair, BPE) parses them on that codec, decodes
+  on the host, and keeps no device mirror;
 * once the tail reaches ``strings_per_segment`` strings it is sealed into a
   new immutable segment, off-thread by default, and mirrored on the
   device; ``multiget`` (the decode kernel) and ``scan`` (the stream
@@ -16,8 +18,10 @@ The writable store layers that lifecycle over
 * a :class:`~repro_torch.store.drift.DriftMonitor` watches the achieved
   ratio of appended data against the train-time ratio; ``compact()``
   re-trains a dictionary on the live data (with the store's
-  :class:`~repro_torch.core.onpair.OnPairConfig`), re-encodes every string
-  through the encode kernel and swaps the store's state under its lock
+  :class:`~repro_torch.core.onpair.OnPairConfig`, or for a host codec
+  through ``registry.codec_from_artifact``), re-encodes every string
+  (through the encode kernel for OnPair16) and swaps the store's state under
+  its lock
   (and, when the store is backed by a directory, writes a new versioned
   generation there).
 
@@ -47,25 +51,25 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import registry
 from repro_torch.core.api import CompressedCorpus
 from repro_torch.core.artifact import DictArtifact
 from repro_torch.core.codec import Encoder
 from repro_torch.core.index import SegmentIndex
 from repro_torch.core.onpair import OnPairConfig, train_dictionary
 from repro_torch.core.packed import PackedDictionary
-from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import OnPairDevice
 from repro_torch.kernels.ref import DeviceDict
 from repro_torch.store.drift import DriftMonitor
 from repro_torch.store.resident import ResidentSegments
 from repro_torch.store.segment import SegmentedCorpus
-from repro_torch.store.store import CompressedStringStore, write_json_atomic
+from repro_torch.store.store import (CompressedStringStore, _split_by_lengths,
+                                     write_json_atomic)
 
 
 def _empty_corpus() -> CompressedCorpus:
     return CompressedCorpus(payload=np.zeros(0, dtype=np.uint8),
-                            offsets=np.zeros(1, dtype=np.int64), raw_bytes=0,
-                            meta={"compressor": "onpair16"})
+                            offsets=np.zeros(1, dtype=np.int64), raw_bytes=0)
 
 
 def _corpus_payloads(corpus: CompressedCorpus) -> list[bytes]:
@@ -83,7 +87,8 @@ class MutableStringStore(CompressedStringStore):
     ``config`` is the OnPair16 training configuration ``compact()`` retrains
     with: ``build`` passes the one it trained with, an artifact carries one,
     and a store opened over a dictionary without one defaults to
-    ``OnPairConfig.onpair16()``. Other keywords are the read store's.
+    ``OnPairConfig.onpair16()``. A host codec retrains with its own. Other
+    keywords are the read store's; the codec must be token-stream.
     """
 
     #: optimistic encode attempts before extend() takes the store lock for
@@ -98,6 +103,7 @@ class MutableStringStore(CompressedStringStore):
                  drift_threshold: float = 0.2, auto_compact: bool = False,
                  train_ratio: float | None = None, async_seal: bool = True,
                  **store_kw):
+        self._check_token_stream(dictionary)
         # tail state exists before the base constructor, which reads n_strings
         self._tail: list[bytes] = []       # compressed payload per string
         self._tail_raw: list[int] = []     # decoded byte length per string
@@ -111,13 +117,17 @@ class MutableStringStore(CompressedStringStore):
         if corpus is None:
             corpus = _empty_corpus()
         super().__init__(dictionary, corpus, config=config, **store_kw)
-        if self.config is None:
-            self.config = OnPairConfig.onpair16()
-        if self.config.max_entry_len is None or self.config.max_entry_len > 16:
-            raise ValueError("compact() retrains for the device kernels, which "
-                             "decode OnPair16: max_entry_len must be <= 16")
+        if self._device is not None:
+            if self.config is None:
+                self.config = OnPairConfig.onpair16()
+            if self.config.max_entry_len is None or self.config.max_entry_len > 16:
+                raise ValueError("compact() retrains for the device kernels, "
+                                 "which decode OnPair16: max_entry_len must "
+                                 "be <= 16")
         self._n_total = self.segments.n_strings
-        self._encoder = self._make_encoder(self._device)
+        self._encoder = self._make_encoder(
+            self._device, None if self._device is not None else self.artifact,
+            self.compressor)
         # serialises encoder use between extend() callers (the bucketed
         # encode grows its shape list on demand)
         self._encode_lock = threading.Lock()
@@ -140,10 +150,38 @@ class MutableStringStore(CompressedStringStore):
         self._seal_done_cv = threading.Condition(self._lock)
 
     @staticmethod
-    def _make_encoder(device: OnPairDevice) -> Encoder:
+    def _check_token_stream(source) -> None:
+        """Refuse a codec that is not token-stream before anything is built:
+        the tail files per-string u16 token payloads."""
+        if isinstance(source, OnPairDevice):
+            name = source.artifact.codec if source.artifact is not None else None
+        elif isinstance(source, DictArtifact):
+            name = source.codec
+        else:
+            obj = source[1] if isinstance(source, tuple) else source
+            name = getattr(obj, "name", None)          # a trained codec
+        if name is None:
+            return  # the base constructor gives the right error
+        try:
+            caps = registry.capabilities(name)
+        except Exception:
+            return  # unknown codec: the base constructor gives the right error
+        if not caps.token_stream:
+            raise ValueError(
+                f"MutableStringStore requires a token-stream codec: appends "
+                f"file per-string u16 token payloads into the tail, but "
+                f"{name!r} is not token_stream (registry capability); "
+                "use a read-only CompressedStringStore for block codecs")
+
+    @staticmethod
+    def _make_encoder(device: OnPairDevice | None, artifact: DictArtifact | None,
+                      compressor) -> Encoder:
         """The tail encoder for a dictionary generation: the encode kernel on
         ``device``'s tables, with the kernel library built now so the first
-        extend() pays no ``nvcc``. compact() calls this outside the lock."""
+        extend() pays no ``nvcc``; or, with no device, the host codec.
+        compact() calls this outside the lock."""
+        if device is None:
+            return Encoder(artifact, codec=compressor)
         device.warm_encode()
         return Encoder(device)
 
@@ -160,17 +198,24 @@ class MutableStringStore(CompressedStringStore):
     def _tail_scan(self, lo: int, hi: int) -> list[bytes]:
         if lo >= hi:
             return []
-        return self._decode_payloads(self._device, self._tail[lo:hi],
+        return self._decode_payloads(self._decoder(), self._tail[lo:hi],
                                      self._tail_raw[lo:hi])
 
+    def _decoder(self) -> OnPairDevice | PackedDictionary:
+        """What decodes this generation's payloads: the device codec, or the
+        host codec's dictionary. Call under the lock."""
+        return self._device if self._device is not None else self.dictionary
+
     @staticmethod
-    def _decode_payloads(device: OnPairDevice, parts: list[bytes],
-                         raw_lens: list[int]) -> list[bytes]:
-        """Tail payloads decoded in one call of the stream kernel on
-        ``device`` (the seal worker passes the device it captured under the
-        lock)."""
+    def _decode_payloads(decoder: OnPairDevice | PackedDictionary,
+                         parts: list[bytes], raw_lens: list[int]) -> list[bytes]:
+        """Tail payloads decoded in one call of the stream kernel on a
+        device codec, or in one ``decode_tokens`` pass of a host dictionary
+        (the seal worker passes the one it captured under the lock)."""
         tokens = np.frombuffer(bytearray().join(parts), dtype="<u2")
-        return device.decode_span(device.upload_tokens(tokens), raw_lens)
+        if isinstance(decoder, PackedDictionary):
+            return _split_by_lengths(decoder.decode_tokens(tokens), raw_lens)
+        return decoder.decode_span(decoder.upload_tokens(tokens), raw_lens)
 
     def _tail_locate(self, payload: bytes) -> int | None:
         if self._tail_map is None:
@@ -325,7 +370,8 @@ class MutableStringStore(CompressedStringStore):
         first ``k`` tail strings; index it when ``raw`` (its strings) is
         given. Bumps ``_tail_gen``: any other in-flight snapshot of the old
         tail prefix is now stale and must not commit."""
-        self.resident.append(payload, offsets)  # checks the tokens first
+        if self.resident is not None:
+            self.resident.append(payload, offsets)  # checks the tokens first
         seg = self.segments.append_segment(payload, offsets, raw_bytes=raw_bytes)
         if raw is not None:
             self._seg_indexes[seg.index] = SegmentIndex.build(
@@ -363,12 +409,13 @@ class MutableStringStore(CompressedStringStore):
                 version, gen = self.version_id, self._tail_gen
                 parts = self._tail[:spc]
                 raw_lens = self._tail_raw[:spc]
+                decoder = self._decoder()
             payload, offsets = self._build_segment(parts)
             with self._lock:
                 if self.version_id != version or self._tail_gen != gen:
                     continue  # the snapshot went stale: start the round again
                 need_raw = bool(self._seg_indexes) or self._tail_map is not None
-                raw = (self._decode_payloads(self._device, parts, raw_lens)
+                raw = (self._decode_payloads(decoder, parts, raw_lens)
                        if need_raw else None)
                 self._commit_seal_locked(spc, payload, offsets, sum(raw_lens),
                                          raw)
@@ -377,8 +424,8 @@ class MutableStringStore(CompressedStringStore):
     def compact(self, *, sample_strings: int | None = None,
                 dir_path: str | None = None, prune_old: bool = True) -> dict:
         """Re-train the dictionary on (a sample of) the live data, re-encode
-        every live string through the encode kernel, and swap the store's
-        state under its lock.
+        every live string (through the encode kernel for OnPair16, on the
+        host codec otherwise), and swap the store's state under its lock.
 
         The live strings are read back through ``scan`` (the stream kernel;
         cold segments from RLZ) in per-segment lock windows; training, the table upload and the bulk
@@ -414,11 +461,20 @@ class MutableStringStore(CompressedStringStore):
             step = max(1, len(live) // sample_strings)
             sample = live[::step][:sample_strings]
         t_train0 = time.perf_counter()
-        trained = train_dictionary(sample, self.config)
-        train_s = time.perf_counter() - t_train0
-        dictionary = PackedDictionary.build(trained.entries)
-        new_device = OnPairDevice(dictionary, self._device.device)
-        new_encoder = self._make_encoder(new_device)
+        if self._device is not None:
+            trained = train_dictionary(sample, self.config)
+            train_s = time.perf_counter() - t_train0
+            dictionary = PackedDictionary.build(trained.entries)
+            new_device = OnPairDevice(dictionary, self._device.device)
+            new_encoder = self._make_encoder(new_device, None, None)
+        else:
+            # the host codec retrains through the registry with its own config
+            dictionary = registry.codec_from_artifact(self.artifact)
+            dictionary.train(sample)
+            train_s = time.perf_counter() - t_train0
+            new_device = None
+            new_encoder = self._make_encoder(None, dictionary.to_artifact(),
+                                             dictionary)
         new_corpus = new_encoder.encode(live)
 
         with self._lock:
@@ -454,26 +510,31 @@ class MutableStringStore(CompressedStringStore):
                 "total_s": round(time.perf_counter() - t0, 4),
                 "version": f"v{self.version_id:04d}", "dir": target}
 
-    def _swap_state_locked(self, dictionary: PackedDictionary | DeviceDict,
-                           corpus: CompressedCorpus,
+    def _swap_state_locked(self, dictionary, corpus: CompressedCorpus,
                            device: OnPairDevice | None = None,
                            encoder: Encoder | None = None) -> None:
         """Replace dictionary, corpus and segments in one locked step. The
         decoded strings are unchanged, but cached entries belong to the old
-        generation's token streams, so the cache is dropped. Pass the
+        generation's token streams, so the cache is dropped. ``dictionary``
+        is the new OnPair16 :class:`PackedDictionary` (or device tables) of
+        a device store, or the retrained host codec of a host one. Pass the
         ``device`` and ``encoder`` built outside the lock so the swap only
         assigns."""
-        self._device = (device if device is not None
-                        else OnPairDevice(dictionary, self._device.device))
         self.corpus = corpus
         self.segments = SegmentedCorpus.from_corpus(
             corpus, self.segments.strings_per_segment)
-        self.resident = ResidentSegments(self._device)
-        self.resident.append(corpus.payload, corpus.offsets)
-        self._set_bucket_caps(corpus.token_counts())
-        self._encoder = (encoder if encoder is not None
-                         else self._make_encoder(self._device))
         self._artifact = None  # frozen anew from the new tables on demand
+        if self._device is not None:
+            self._device = (device if device is not None
+                            else OnPairDevice(dictionary, self._device.device))
+            self.resident = ResidentSegments(self._device)
+            self.resident.append(corpus.payload, corpus.offsets)
+        else:
+            self.compressor = dictionary
+        self._set_bucket_caps(corpus.token_counts())
+        self._encoder = (encoder if encoder is not None else self._make_encoder(
+            self._device, None if self._device is not None else self.artifact,
+            self.compressor))
         self._dirty = True
         self._tail = []
         self._tail_raw = []
@@ -520,7 +581,7 @@ class MutableStringStore(CompressedStringStore):
         raw = self.segments.raw_bytes + sum(self._tail_raw)
         return CompressedCorpus(payload=payload, offsets=np.concatenate(offs),
                                 raw_bytes=int(raw),
-                                meta={"compressor": "onpair16"})
+                                meta={"compressor": self.codec_name})
 
     def save(self, dir_path: str) -> None:
         """Write the current dictionary generation as ``<dir>/v{id}/`` (the
@@ -543,7 +604,7 @@ class MutableStringStore(CompressedStringStore):
             artifact = self.artifact
             corpus = self._to_corpus_locked()
             # encode_backend is the reference's key: "numpy" is the value it
-            # accepts on every host; the port always encodes on its kernel
+            # accepts on every host; the port encodes OnPair16 on its kernel
             meta = self.store_meta(
                 mutable=True, n_tail=len(self._tail),
                 version_id=self.version_id, encode_backend="numpy",
@@ -590,18 +651,21 @@ class MutableStringStore(CompressedStringStore):
 
     @classmethod
     def open(cls, dir_path: str, mmap: bool = True,
-             device: str | torch.device = "cuda",
+             device: str | torch.device | None = None, source=None,
              **overrides) -> "MutableStringStore":
         """Reopen a writable store, either package's: the versioned layout
         (``current.json``) or a plain read-only store directory. An unsealed
         tail saved with the corpus is split back out so appends keep sealing
         on the same boundaries, and the drift window is restored as saved.
-        ``overrides`` beat every saved param; the saved ``encode_backend``
-        is ignored (the port encodes on its kernel)."""
-        device = resolve_device(device)
+        ``device`` and ``source`` are the read store's (see
+        :meth:`CompressedStringStore.open`). ``overrides`` beat every saved
+        param; the saved ``encode_backend`` is ignored (the port encodes
+        OnPair16 on its kernel, every other codec on the host)."""
         sub = cls._resolve_current(dir_path)
         meta = cls._read_meta(sub)
-        artifact = DictArtifact.load(os.path.join(sub, cls._DICT_FILE), mmap=mmap)
+        if source is None:
+            source = DictArtifact.load(os.path.join(sub, cls._DICT_FILE),
+                                       mmap=mmap)
         corpus = CompressedCorpus.load(os.path.join(sub, cls._CORPUS_FILE),
                                        mmap=mmap)
         n, n_tail = corpus.n_strings, int(meta.get("n_tail", 0))
@@ -611,10 +675,11 @@ class MutableStringStore(CompressedStringStore):
         kw["drift_threshold"] = meta.get("drift_threshold", 0.2)
         kw["async_seal"] = meta.get("async_seal", True)
         kw.update(overrides)
-        store = cls(artifact, sealed, device=device, **kw)
+        store = cls(source, sealed, device=device, **kw)
         if n_tail:
             # each tail string's decoded length, from the entry lengths
-            lens = store._device.host_lens
+            lens = (store._device.host_lens if store._device is not None
+                    else store.dictionary.lens.astype(np.int64))
             payloads = [corpus.string_payload(i) for i in range(n - n_tail, n)]
             raws = [int(lens[np.frombuffer(p, dtype="<u2")].sum())
                     for p in payloads]
@@ -631,6 +696,13 @@ class MutableStringStore(CompressedStringStore):
         store._dir = dir_path
         store._dirty = False  # the tail's restore is not an unsaved append
         return store
+
+    def _tier_home(self) -> str | None:
+        # the current generation's directory: attach reads cold files there,
+        # and save() writes the generation there
+        if self._dir is None:
+            return None
+        return os.path.join(self._dir, self._version_name())
 
     def stats_snapshot(self) -> dict:
         snap = super().stats_snapshot()

@@ -51,14 +51,16 @@ class StoreStats:
         self._locate_lat.record_seconds(seconds)
 
     def record_decode(self, chunks: dict[tuple[int, int], int], n_real: int,
-                      nbytes: int, seconds: float) -> None:
+                      nbytes: int, seconds: float, jitted: bool = True) -> None:
         """One call's decoded misses. ``chunks`` maps each padded ``(B, T)``
         shape the reference would launch for them to its number of
-        batches."""
+        batches; a host decode (``jitted=False``) counts its one unpadded
+        batch and no shape, as the reference's numpy path does."""
         for shape, k in chunks.items():
             self.batches += k
             self.padded_rows += shape[0] * k
-            self.jit_shapes.add(shape)
+            if jitted:
+                self.jit_shapes.add(shape)
         self.decoded_strings += n_real
         self.decoded_bytes += nbytes
         self.decode_seconds += seconds

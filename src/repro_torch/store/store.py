@@ -1,7 +1,17 @@
-"""CompressedStringStore — batched random-access serving over an OnPair16 corpus.
+"""CompressedStringStore — batched random-access serving over a compressed
+corpus of any token-stream codec (OnPair16 on the card, OnPair and BPE on
+the host).
 
 A frozen dictionary plus a :class:`~repro_torch.core.api.CompressedCorpus`
 become a store answering ``get(i)`` / ``multiget(ids)`` / ``scan(lo, hi)``.
+The codec's registry capability decides where it serves, and nothing else
+does: a ``device_decodable`` codec (``"onpair16"``) serves from the device
+as set out below; any other token-stream codec (``"onpair"``, ``"bpe"``)
+serves on the host, as the reference's numpy backend does — one vectorised
+``PackedDictionary.decode_tokens`` a multiget and a segment's range a scan,
+queries encoded by its host codec — with no device mirror and no device
+codec, and reports ``backend == "numpy"``. Non-token-stream codecs (FSST,
+the block codecs, raw) are refused, as the reference refuses them.
 
 Hot path (``multiget``): the sealed segments live on the device too
 (:class:`~repro_torch.store.resident.ResidentSegments`), so a multiget
@@ -50,9 +60,10 @@ from itertools import islice
 import numpy as np
 import torch
 
+from repro_torch.core import registry
 from repro_torch.core.api import CompressedCorpus
 from repro_torch.core.artifact import DictArtifact
-from repro_torch.core.codec import Encoder
+from repro_torch.core.codec import Encoder, refuse_device
 from repro_torch.core.index import (SegmentIndex, dump_indexes, fingerprints,
                                     load_indexes)
 from repro_torch.core.onpair import OnPairConfig, train_dictionary
@@ -89,6 +100,12 @@ def write_json_atomic(path: str, obj: dict) -> None:
     os.replace(tmp, path)
 
 
+def _split_by_lengths(decoded: bytes, raw_lens) -> list[bytes]:
+    """One decoded byte run split into strings of the given lengths."""
+    b = np.concatenate(([0], np.cumsum(raw_lens, dtype=np.int64))).tolist()
+    return [decoded[lo:hi] for lo, hi in zip(b, b[1:])]
+
+
 def _id_array(ids) -> np.ndarray:
     """Requested ids as int64, converted in C where they are integers
     already (a list of ints, a range, an integer array)."""
@@ -103,18 +120,28 @@ def _id_array(ids) -> np.ndarray:
 class CompressedStringStore:
     """Queryable in-memory store over one compressed corpus.
 
-    ``dictionary`` is the frozen :class:`PackedDictionary` the corpus was
-    encoded with, its tables already on ``device`` as a :class:`DeviceDict`
-    (see :mod:`repro_torch.convert`), a saved :class:`DictArtifact`, or an
-    :class:`OnPairDevice` opened from one: the store saves that codec's
-    artifact and decodes and encodes on it, with no upload of its own, so
-    several stores (the shards of :mod:`repro_torch.distributed`) share one
-    copy of the tables on the card. ``device`` then defaults to the codec's
-    and must name the same device.
-    ``config`` is the training configuration the dictionary came from, where
-    it is known (``build`` passes its own, an artifact carries one); the
-    writable store retrains with it, and ``save`` writes it into the
-    artifact.
+    ``dictionary`` is the source of the corpus's dictionary:
+
+    * an OnPair16 dictionary for the device: the frozen
+      :class:`PackedDictionary` the corpus was encoded with, its tables
+      already on ``device`` as a :class:`DeviceDict` (see
+      :mod:`repro_torch.convert`), or an :class:`OnPairDevice`: the store
+      saves that codec's artifact and decodes and encodes on it, with no
+      upload of its own, so several stores (the shards of
+      :mod:`repro_torch.distributed`) share one copy of the tables on the
+      card. ``device`` then defaults to the codec's and must name the same
+      device;
+    * a saved :class:`DictArtifact` of any token-stream codec, or a trained
+      host codec (``registry.create(name)`` after ``train``), or an
+      ``(artifact, host codec)`` pair already loaded (the shards of a host
+      codec share one). An ``"onpair16"`` one goes to the device
+      (``device`` defaults to ``"cuda"``); any other serves on the host, and
+      an explicit ``device`` for it raises ValueError.
+
+    ``config`` is the OnPair16 training configuration the dictionary came
+    from, where it is known (``build`` passes its own, an artifact carries
+    one); the writable store retrains with it, and ``save`` writes it into
+    the artifact. A host codec carries its own.
     """
 
     #: bumped by a writable store's compact(); locate re-encodes its queries
@@ -134,26 +161,24 @@ class CompressedStringStore:
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self._artifact: DictArtifact | None = None
-        if isinstance(dictionary, OnPairDevice):
-            if device is not None and not same_device(torch.device(device),
-                                                      dictionary.device):
-                raise ValueError(f"the shared device codec is on "
-                                 f"{dictionary.device}, not {device}")
-            self._device = dictionary
-            dictionary = dictionary.artifact
-        else:
-            self._device = OnPairDevice(dictionary,
-                                        "cuda" if device is None else device)
+        #: the host codec of a codec with no kernel; None on the device path
+        self.compressor = None
+        #: the device codec; None on the host path
+        self._device: OnPairDevice | None = None
+        dictionary = self._open_source(dictionary, device)
         if isinstance(dictionary, DictArtifact):
             self._artifact = dictionary
-            if config is None and dictionary.config:
+            if config is None and dictionary.config and self._device is not None:
                 config = OnPairConfig(**dictionary.config)
-        self.config = config
-        self.backend = self._device.device.type
+        self.config = config if self._device is not None else None
+        self.backend = "numpy" if self._device is None else self._device.device.type
         self.corpus = corpus
         self.segments = SegmentedCorpus.from_corpus(corpus, strings_per_segment)
-        self.resident = ResidentSegments(self._device)
-        self.resident.append(corpus.payload, corpus.offsets)
+        #: the device mirror of the sealed segments; None on the host path
+        self.resident: ResidentSegments | None = None
+        if self._device is not None:
+            self.resident = ResidentSegments(self._device)
+            self.resident.append(corpus.payload, corpus.offsets)
         self.cache = LRUCache(cache_bytes)
         self.batch_size = int(batch_size)
         self.num_buckets = int(num_buckets)
@@ -163,10 +188,67 @@ class CompressedStringStore:
         # query encoder (built on first use: most stores never locate)
         self._seg_indexes: dict[int, SegmentIndex] = {}
         self._locate_encoder: Encoder | None = None
+        #: the directory the store was opened from (the cold tier's default
+        #: home); None for a store built in memory
+        self._home: str | None = None
         self.stats = StoreStats(backend=self.backend)
         self._set_bucket_caps(corpus.token_counts())
         #: hot/cold tiering; None until enable_tiering()
         self.tier: TierManager | None = None
+
+    def _open_source(self, source, device):
+        """Set ``_device`` or ``compressor`` from the dictionary source; the
+        artifact it carries (or None) comes back for ``__init__``."""
+        if isinstance(source, OnPairDevice):
+            if device is not None and not same_device(torch.device(device),
+                                                      source.device):
+                raise ValueError(f"the shared device codec is on "
+                                 f"{source.device}, not {device}")
+            self._device = source
+            return source.artifact
+        if isinstance(source, (PackedDictionary, DeviceDict)):
+            self._device = OnPairDevice(source, "cuda" if device is None else device)
+            return None
+        if isinstance(source, tuple):          # (artifact, its host codec)
+            artifact, codec = source
+        elif isinstance(source, DictArtifact):
+            artifact, codec = source, None
+        else:                                  # a trained codec
+            artifact, codec = None, source
+        name = artifact.codec if artifact is not None else codec.name
+        on_device = registry.capabilities(name).device_decodable
+        if codec is None and not on_device:
+            codec = registry.codec_from_artifact(artifact)
+        # the reference's checks, in its order and wording
+        if codec is not None and getattr(codec, "dictionary", None) is None:
+            raise ValueError("source must be a trained token-stream codec "
+                             "or a DictArtifact (train() first)")
+        if on_device:
+            if artifact is None:
+                artifact = codec.to_artifact()
+            self._device = OnPairDevice(
+                codec.dictionary if codec is not None else artifact,
+                "cuda" if device is None else device)
+            return artifact
+        if not registry.capabilities(codec.name).token_stream:
+            raise ValueError("store requires a token-stream codec "
+                             f"(registry capability), got {codec.name!r}")
+        refuse_device(name, device)
+        self.compressor = codec
+        return artifact
+
+    @property
+    def dictionary(self) -> PackedDictionary | None:
+        """The frozen host dictionary: the host codec's, or the device
+        codec's where it was built from one (None over bare device tables)."""
+        if self._device is None:
+            return self.compressor.dictionary
+        return self._device.dictionary
+
+    @property
+    def codec_name(self) -> str:
+        """The registry name of the store's codec."""
+        return "onpair16" if self._device is not None else self.compressor.name
 
     def _set_bucket_caps(self, counts: np.ndarray) -> None:
         """Length buckets: token capacities from corpus quantiles."""
@@ -183,12 +265,29 @@ class CompressedStringStore:
         self.bucket_caps = np.asarray(caps, dtype=np.int64)
 
     @classmethod
-    def build(cls, strings: list[bytes], *, sample_bytes: int = 4 << 20,
-              seed: int = 0, device: str | torch.device = "cuda",
+    def build(cls, strings: list[bytes], *, codec: str | None = None,
+              variant16: bool = True, sample_bytes: int = 4 << 20,
+              seed: int = 0, device: str | torch.device | None = None,
               **store_kw) -> "CompressedStringStore":
-        """Train an OnPair16 dictionary on ``strings``, encode them through
-        the encode kernel, and open a store over the result."""
-        device = resolve_device(device)
+        """Train a dictionary on ``strings``, compress them, open a store.
+
+        ``codec`` is any registered token-stream codec name; ``variant16``
+        maps to ``"onpair16"``/``"onpair"`` when ``codec`` is None, as in
+        the reference. OnPair16 trains here and encodes through the encode
+        kernel on ``device`` (default ``"cuda"``); any other codec trains
+        and compresses on the host, and takes no ``device``."""
+        if codec is None:
+            codec = "onpair16" if variant16 else "onpair"
+        caps = registry.capabilities(codec)
+        if not caps.token_stream:
+            raise ValueError("store requires a token-stream codec "
+                             f"(registry capability), got {registry.resolve(codec)!r}")
+        if not caps.device_decodable:
+            refuse_device(codec, device)
+            comp = registry.create(codec, sample_bytes=sample_bytes, seed=seed)
+            comp.train(strings)
+            return cls(comp, comp.compress(strings), **store_kw)
+        device = resolve_device("cuda" if device is None else device)
         config = OnPairConfig.onpair16(sample_bytes=sample_bytes, seed=seed)
         dictionary = PackedDictionary.build(
             train_dictionary(strings, config).entries)
@@ -211,9 +310,12 @@ class CompressedStringStore:
 
     @property
     def artifact(self) -> DictArtifact:
-        """The store's dictionary as an immutable, serializable artifact
-        (codec ``"onpair16"``, the training config where known). Over bare
-        device tables the entries are read back from them."""
+        """The store's dictionary as an immutable, serializable artifact:
+        the host codec's, or codec ``"onpair16"`` with the training config
+        where known. Over bare device tables the entries are read back from
+        them."""
+        if self._artifact is None and self.compressor is not None:
+            self._artifact = self.compressor.to_artifact()
         if self._artifact is None:
             d = self._device.dictionary
             entries = d.entries if d is not None else self._device.dd.entries()
@@ -263,18 +365,19 @@ class CompressedStringStore:
             return json.load(f)
 
     @classmethod
-    def open_corpus_dir(cls, dir_path: str,
-                        source: DictArtifact | OnPairDevice,
+    def open_corpus_dir(cls, dir_path: str, source,
                         mmap: bool = True, **overrides) -> "CompressedStringStore":
         """Open a directory holding corpus.rpc + store.json against an
-        already-loaded artifact, or a device codec opened from one that
-        several stores share (the shards of one sharded directory)."""
+        already-loaded artifact, or a codec opened from one that several
+        stores share (the shards of one sharded directory): an
+        :class:`OnPairDevice`, or an ``(artifact, host codec)`` pair."""
         meta = cls._read_meta(dir_path)
         corpus = CompressedCorpus.load(
             os.path.join(dir_path, cls._CORPUS_FILE), mmap=mmap)
         kw = {k: meta[k] for k in cls._STORE_KW}
         kw.update(overrides)
         store = cls(source, corpus, **kw)
+        store._home = dir_path
         store._load_index(dir_path)
         store._attach_tier(dir_path, meta)
         return store
@@ -292,18 +395,22 @@ class CompressedStringStore:
 
     @classmethod
     def open(cls, dir_path: str, mmap: bool = True,
-             device: str | torch.device = "cuda",
+             device: str | torch.device | None = None, source=None,
              **overrides) -> "CompressedStringStore":
         """Open a saved store (either package's): map the artifact and
-        corpus, no retraining; the dictionary's tables and the device mirror
-        are built from them as at build. ``overrides`` replace saved
-        construction params. A versioned (writable-store) directory opens
-        read-only at its current generation."""
-        device = resolve_device(device)
+        corpus, no retraining; for OnPair16 the dictionary's tables and the
+        device mirror are built from them as at build (``device`` defaults
+        to ``"cuda"``), any other codec serves on the host. ``source``, a
+        codec already opened from this store's dictionary (see
+        :meth:`open_corpus_dir`), is used instead of the saved artifact.
+        ``overrides`` replace saved construction params. A versioned
+        (writable-store) directory opens read-only at its current
+        generation."""
         dir_path = cls._resolve_current(dir_path)
-        artifact = DictArtifact.load(
-            os.path.join(dir_path, cls._DICT_FILE), mmap=mmap)
-        return cls.open_corpus_dir(dir_path, artifact, mmap=mmap, device=device,
+        if source is None:
+            source = DictArtifact.load(
+                os.path.join(dir_path, cls._DICT_FILE), mmap=mmap)
+        return cls.open_corpus_dir(dir_path, source, mmap=mmap, device=device,
                                    **overrides)
 
     # ----------------------------------------------------------------- tiering
@@ -317,6 +424,12 @@ class CompressedStringStore:
                 if k in params:
                     setattr(self.tier, k, float(params[k]))
         return self.tier
+
+    def _tier_home(self) -> str | None:
+        """Where the cold tier writes when given no ``workdir``: the
+        directory this store was opened from, None for one built in memory.
+        The writable store names its current generation instead."""
+        return self._home
 
     def _tier_meta_locked(self) -> dict:
         """store.json extras describing the tier state (``{}`` when the tier
@@ -380,9 +493,9 @@ class CompressedStringStore:
     def resident_device_bytes(self) -> int:
         """Bytes the device mirror of the sealed segments holds (payload and
         token starts, spare room included; cold segments' tokens are not
-        there); not part of ``memory_bytes``, which counts what the
-        reference counts."""
-        return self.resident.device_bytes
+        there; 0 on the host path); not part of ``memory_bytes``, which
+        counts what the reference counts."""
+        return self.resident.device_bytes if self.resident is not None else 0
 
     @property
     def memory_bytes(self) -> int:
@@ -398,7 +511,9 @@ class CompressedStringStore:
         cold = self.tier.cold if self.tier is not None else ()
         seg_bytes = sum(s.payload_bytes + s.offsets.nbytes
                         for s in self.segments.segments if s.index not in cold)
-        return (seg_bytes + self._device.resident_bytes
+        dict_bytes = (self._device.resident_bytes if self._device is not None
+                      else self.dictionary.resident_bytes)
+        return (seg_bytes + dict_bytes
                 + self.cache.current_bytes + self._tail_payload_bytes())
 
     def get(self, i: int) -> bytes:
@@ -466,10 +581,12 @@ class CompressedStringStore:
 
     def _scan_locked(self, lo: int, hi: int) -> list[bytes]:
         out: list[bytes] = []
-        sealed = self.resident.n_strings
+        sealed = self.segments.n_strings
         s_hi = min(hi, sealed)
         for seg, a, b in self._scan_parts_locked(lo, s_hi):
-            if seg is None:
+            if seg is None and self._device is None:
+                out.extend(self._scan_host_locked(a, b))
+            elif seg is None:
                 out.extend(self._scan_mirror_locked(a, b))
             else:
                 out.extend(self.tier.decode_range_locked(
@@ -498,6 +615,31 @@ class CompressedStringStore:
             else:
                 parts.append((None, a, b))
         return parts
+
+    def _scan_host_locked(self, lo: int, hi: int) -> list[bytes]:
+        """Host path: hot sealed strings [lo, hi), each segment's covered
+        slice one token stream through ``decode_tokens``, split on the
+        strings' byte boundaries (the reference's numpy scan)."""
+        out: list[bytes] = []
+        for seg in self.segments.overlapping(lo, hi):
+            l0 = max(lo, seg.base_id) - seg.base_id
+            l1 = min(hi, seg.base_id + seg.n_strings) - seg.base_id
+            if l0 >= l1:
+                continue
+            tokens = np.asarray(seg.tokens(l0, l1), dtype=np.int64)
+            out.extend(self._split_decoded(self.dictionary.decode_tokens(tokens),
+                                           tokens, seg.token_counts()[l0:l1]))
+        return out
+
+    def _split_decoded(self, decoded: bytes, tokens: np.ndarray,
+                       counts: np.ndarray) -> list[bytes]:
+        """Split one decoded byte run back into per-string slices (host
+        path), the strings' lengths summed from the entry lengths."""
+        tok_lens = self.dictionary.lens[tokens].astype(np.int64)
+        byte_cum = np.zeros(tokens.size + 1, dtype=np.int64)
+        np.cumsum(tok_lens, out=byte_cum[1:])
+        return _split_by_lengths(
+            decoded, np.diff(byte_cum[np.concatenate(([0], np.cumsum(counts)))]))
 
     def _scan_mirror_locked(self, lo: int, hi: int) -> list[bytes]:
         """Hot sealed strings [lo, hi), back to back in the mirror, in one
@@ -601,7 +743,9 @@ class CompressedStringStore:
         writable store returns its tail encoder instead (the same
         generation's tables)."""
         if self._locate_encoder is None:
-            self._locate_encoder = Encoder(self._device)
+            self._locate_encoder = (
+                Encoder(self._device) if self._device is not None
+                else Encoder(self.artifact, codec=self.compressor))
         return self._locate_encoder
 
     def _encode_queries(self, strings: list[bytes]) -> CompressedCorpus:
@@ -691,7 +835,8 @@ class CompressedStringStore:
                     n_segments=self.segments.n_segments,
                     bucket_caps=[int(c) for c in self.bucket_caps],
                     memory_bytes=self.memory_bytes,
-                    device_dict_bytes=self._device.dd.nbytes)
+                    device_dict_bytes=(self._device.dd.nbytes
+                                       if self._device is not None else 0))
         if self.tier is not None:
             snap["tier"] = self.tier.snapshot()
         return snap
@@ -727,6 +872,8 @@ class CompressedStringStore:
         ``repro_kernel_decode_batches_total`` and the ``kernel.decode_batch``
         spans count.
         """
+        if self._device is None:
+            return self._decode_host(misses)
         t0 = time.perf_counter()
         sealed = self.resident.n_strings
         in_tail = misses >= sealed
@@ -757,4 +904,30 @@ class CompressedStringStore:
                   for b, k in enumerate(per_bucket) if k}
         self.stats.record_decode(chunks, misses.size, sum(map(len, decoded)),
                                  time.perf_counter() - t0)
+        return decoded
+
+    def _decode_host(self, misses: np.ndarray) -> np.ndarray:
+        """Host path (the reference's numpy decode): every miss's tokens,
+        sealed and tail, concatenate into one token stream, decoded by
+        ``decode_tokens`` in one vectorised pass and split per string; the
+        stats count one unpadded batch, as the reference's do."""
+        t0 = time.perf_counter()
+        sealed = self.segments.n_strings
+        lists = []
+        for gid in misses.tolist():
+            if gid < sealed:
+                seg, local = self.segments.route(gid)
+                o0, o1 = int(seg.offsets[local]), int(seg.offsets[local + 1])
+                lists.append(np.asarray(seg.payload[o0:o1]).view("<u2"))
+            else:
+                lists.extend(self._tail_token_lists(np.asarray([gid - sealed])))
+        counts = np.fromiter(map(len, lists), dtype=np.int64, count=len(lists))
+        tokens = (np.concatenate(lists).astype(np.int64) if lists
+                  else np.zeros(0, dtype=np.int64))
+        raw = self.dictionary.decode_tokens(tokens)
+        decoded = np.empty(misses.size, dtype=object)
+        decoded[:] = self._split_decoded(raw, tokens, counts)
+        self.stats.record_decode(
+            {(misses.size, int(counts.max()) if counts.size else 0): 1},
+            misses.size, len(raw), time.perf_counter() - t0, jitted=False)
         return decoded

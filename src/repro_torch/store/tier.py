@@ -7,7 +7,8 @@ and writes.
 * **hot** — the segment's OnPair token payload lives in the store's device
   mirror (:mod:`repro_torch.store.resident`) and in host memory; multiget
   decodes it with the per-string decode kernel, scan with the stream
-  kernel.
+  kernel. A store of a host codec (OnPair, BPE) has no mirror: its hot
+  segments decode on the host, and a demotion has nothing to evict.
 * **cold** — the segment's strings, read once through the stream kernel,
   are re-encoded with :mod:`repro_torch.core.rlz` against the dictionary's
   entry blob and written as a ``cold-<seg>.rlz`` container; the RLZ factor
@@ -33,6 +34,11 @@ State machine per sealed segment::
 
 Every kernel launch of a demotion (the stream read) and every eviction or
 restore of the mirror runs under the store's lock.
+
+Cold files go to ``workdir`` when one is given; else next to the files the
+store was opened from (its directory, or the current generation of a
+writable one), where ``attach`` finds them on reopen; else, for a store
+built in memory, to a fresh temporary directory.
 
 Obs: ``repro_store_tier_bytes{tier=hot|cold}`` gauges and the
 ``repro_store_cold_get_latency_us`` histogram.
@@ -99,6 +105,9 @@ class TierManager:
         self.demotions = 0
         self.promotions = 0
         self._workdir = workdir
+        #: whether the caller chose the workdir; else a compaction, which
+        #: starts a new generation directory, lets it follow the store
+        self._workdir_given = workdir is not None
         # temperature signal: the writable store's DriftMonitor when it has
         # one, a private monitor for read-only stores
         drift = getattr(store, "drift", None)
@@ -244,7 +253,8 @@ class TierManager:
         header, arrays = opened if opened is not None \
             else read_container(path, mmap=True)
         rlz = {k: arrays[k] for k in ("starts", "offs", "lens", "literals")}
-        self.store.resident.evict(seg.base_id, seg.base_id + seg.n_strings)
+        if self.store.resident is not None:
+            self.store.resident.evict(seg.base_id, seg.base_id + seg.n_strings)
         seg.payload = arrays["payload"]
         seg.offsets = arrays["offsets"]
         self.cold[seg.index] = ColdSegment(
@@ -268,8 +278,9 @@ class TierManager:
             return False
         seg = self.store.segments.segments[seg_index]
         # a failed restore raises with the segment still cold
-        self.store.resident.restore(seg.base_id, seg.base_id + seg.n_strings,
-                                    seg.payload, seg.offsets)
+        if self.store.resident is not None:
+            self.store.resident.restore(seg.base_id, seg.base_id + seg.n_strings,
+                                        seg.payload, seg.offsets)
         del self.cold[seg_index]
         seg.payload = np.array(seg.payload, dtype=np.uint8, copy=True)
         seg.offsets = np.array(seg.offsets, dtype=np.int64, copy=True)
@@ -325,6 +336,8 @@ class TierManager:
     def _reference(self) -> np.ndarray:
         """The RLZ reference: the dictionary's entries back to back, byte for
         byte the JAX package's ``dictionary.blob``."""
+        if self.store._device is None:
+            return np.asarray(self.store.dictionary.blob, dtype=np.uint8)
         return self.store._device.blob
 
     # ------------------------------------------------------------ persistence
@@ -391,6 +404,8 @@ class TierManager:
         mirror out from under it; the rewrite folded cold data back into hot
         segments)."""
         self.cold.clear()
+        if not self._workdir_given:
+            self._workdir = None  # the next demotion writes to the new generation
         self._codec = None
         self._codec_version = -1
         self._crc = None
@@ -426,9 +441,9 @@ class TierManager:
     # --------------------------------------------------------------- internal
     def _ensure_workdir(self) -> str:
         if self._workdir is None:
-            self._workdir = tempfile.mkdtemp(prefix="repro-tier-")
-        else:
-            os.makedirs(self._workdir, exist_ok=True)
+            self._workdir = (self.store._tier_home()
+                             or tempfile.mkdtemp(prefix="repro-tier-"))
+        os.makedirs(self._workdir, exist_ok=True)
         return self._workdir
 
     def _codec_for_locked(self, version: int) -> RLZCodec:

@@ -616,3 +616,51 @@ def test_trace_spans_sharded_multiget(titles, port_art, ref_art, tmp_path):
             assert s["annotations"]["backend"] == "cpu"
             assert s["annotations"]["batch"] >= 1
     _assert_parentage(trace)
+
+
+# ------------------------------------- reopen after a save of appends
+def test_reopen_after_a_save_of_appends_uploads_the_tables_once(
+        titles, port_art, ref_art, tmp_path, monkeypatch):
+    """A shard saved after appends holds the directory's dictionary byte for
+    byte, so a sharded reopen opens it on the shared device codec: one
+    build of the tables per open, read-only or writable. A compacted shard
+    keeps a codec of its own."""
+    pd, _ = _sharded_pair(port_art, ref_art, titles[:600], tmp_path, 3)
+    sharded = ShardedStringStore.open(pd, device=CPU, writable=True)
+    new = sharded.extend([b"appended-%d" % i for i in range(40)])
+    sharded.save()
+    tail = os.path.join(pd, "shard-0002")
+    gen = _json(os.path.join(tail, "current.json"))["current"]
+    with open(os.path.join(tail, gen, "dictionary.rpa"), "rb") as a, \
+            open(os.path.join(pd, "dictionary.rpa"), "rb") as b:
+        assert a.read() == b.read()
+    builds = []
+    real = kref.DeviceDict.build
+
+    def counting(d, device):
+        builds.append(device)
+        return real(d, device)
+
+    monkeypatch.setattr(kref.DeviceDict, "build", staticmethod(counting))
+    for writable in (False, True):
+        builds.clear()
+        again = ShardedStringStore.open(pd, device=CPU, writable=writable)
+        assert len(builds) == 1, writable
+        assert len({id(st._device) for st in again.stores}) == 1
+        assert again.multiget(new) == [b"appended-%d" % i for i in range(40)]
+        assert again.scan(0, 600) == titles[:600]
+    builds.clear()
+    assert open_shard(pd, 2, device=CPU).multiget([0]) == [titles[512]]
+    assert len(builds) == 1
+    # the reference reads the same directory
+    assert RefSharded.open(pd, backend="numpy").multiget(new[:3]) == \
+        [b"appended-%d" % i for i in range(3)]
+    # a compacted shard has a dictionary of its own, on a codec of its own
+    again.compact(shard=2)
+    again.save()
+    builds.clear()
+    after = ShardedStringStore.open(pd, device=CPU)
+    assert len(builds) == 2
+    assert after.stores[2]._device is not after.stores[0]._device
+    assert after.stores[0]._device is after.stores[1]._device
+    assert after.multiget(new[:2]) == [b"appended-0", b"appended-1"]

@@ -744,3 +744,42 @@ def test_rlz_reference_over_device_tables_equals_blob(ref_art, titles, tmp_path)
     opened = RefStore.open(d2)
     assert sorted(opened.tier.cold) == [2]
     assert opened.scan(0, 600) == titles[:600]
+
+
+# ------------------------------- a sharded demotion with no workdir
+def test_sharded_demotion_without_workdir_writes_under_the_shard_dirs(
+        port_art, ref_art, titles, tmp_path, monkeypatch):
+    """A shard opened from disk keeps its cold files beside its own files
+    (the current generation's directory of a writable one), where a save
+    lists them and either package's open attaches them; no temporary
+    directory is made."""
+    from repro.distributed import ShardedStringStore as RefSharded
+    from repro_torch.distributed import ShardedStringStore, save_sharded
+    import tempfile
+
+    def no_tempdir(*a, **k):
+        raise AssertionError("a shard opened from disk made a temp directory")
+
+    monkeypatch.setattr(tempfile, "mkdtemp", no_tempdir)
+    port, _ = _pair(port_art, ref_art, titles[:1200])
+    d = str(tmp_path / "shards")
+    save_sharded(port, d, 2)
+    ro = ShardedStringStore.open(d, device=CPU)
+    ro.demote(shard=0, segment=1, **COLD)
+    assert os.path.exists(os.path.join(d, "shard-0000", "cold-0001.rlz"))
+    w = ShardedStringStore.open(d, device=CPU, writable=True)
+    w.demote(shard=1, segment=2, **COLD)
+    gen = os.path.join(d, "shard-0001", "v0000")
+    assert os.path.exists(os.path.join(gen, "cold-0002.rlz"))
+    w.extend([b"tail append"])
+    w.save()  # the tail shard's generation lists its cold segment
+    for opened in (ShardedStringStore.open(d, device=CPU),
+                   RefSharded.open(d, backend="numpy")):
+        assert sorted(opened.stores[1].tier.cold) == [2]
+        assert opened.scan(0, 1200) == titles[:1200]
+        assert opened.get(1200) == b"tail append"
+    # a store built in memory still writes to a temporary directory
+    monkeypatch.undo()
+    tier = port.enable_tiering(**COLD)
+    tier.demote(0)
+    assert os.path.dirname(tier.cold[0].path) != d
