@@ -66,7 +66,22 @@ after:
    explicit device for BPE and stores of FSST, LZ-block and raw refused; a
    writable unbounded-OnPair store appended to, compacted and opened in a
    fresh process; and an OnPair16 store built by codec name on the card, its
-   launches recomputed.
+   launches recomputed;
+9. wire: the read store's four shards behind four ``repro_torch.net``
+   ``ShardServer``s in this process (writable, on the card) and read through
+   a ``DistributedStringStore`` over loopback: every id in the read path's
+   shuffled calls (one decode launch per shard a call touches, equal to the
+   servers' service batches), the same sweep under the profiler, ``get()``
+   from eight threads, ``scan(0, n)`` in 4,096-string RPCs (one stream
+   launch each) while a second connection reads, ``locate_batch`` and
+   ``scan_prefix`` equal to the flat store's, 5,000 strings extended onto
+   the tail shard and read back; then one shard served by ``python -m
+   repro_torch.net`` in a child process on the card, read through a router,
+   its ``/metrics`` counts equal to the requests sent, killed, restarted on
+   its port and read again through the same router, which reconnects. The
+   wire runs last, after the kernels' parity checks and timings: its
+   profiled sweep's launches come from the servers' threads, and no other
+   profiled window follows it.
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
@@ -102,6 +117,7 @@ import hashlib
 import json
 import os
 import pstats
+import queue
 import re
 import shutil
 import subprocess
@@ -145,6 +161,11 @@ CODEC_SAMPLES = {"onpair": 1 << 20, "onpair16": 1 << 20, "bpe": 1 << 18,
                  "fsst": 1 << 18}
 CODEC_ACCESS = 1_000  # seeded random access calls per codec
 CODEC_APPENDS = 10_000  # strings appended to the writable unbounded-OnPair store
+WIRE_GET_IDS = 20_000  # shuffled ids the wire phase's get() threads share
+WIRE_LOCATE_HITS = 10_000  # of the persist phase's hits, located over the wire
+WIRE_LOCATE_MISSES = 1_000  # of its misses, located first (every index builds)
+WIRE_PREFIXES = 3  # of its prefixes, the three with the fewest probes
+WIRE_READY_S = 120.0  # deadline for the subprocess server's readiness line
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
@@ -1605,6 +1626,7 @@ def main() -> int:
     codecs_phase(card, dev, strings, store.artifact, corpus, counts, encode_calls,
                  fresh_open)
 
+
     # ------------------------------------------- 5. device share of each path
     # a window of each path, driven as above but under torch.profiler (after
     # the counts were read): kernel device time over the window's wall
@@ -2255,6 +2277,15 @@ def main() -> int:
             f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.4f} us "
             f"({r['bytes']} B at 3.35 TB/s); {r['launches']} launches on the "
             "paths (L2 warm)")
+    # ------------------------------------------------------------- 7. wire
+    # last: a profiled window right after the wire's (whose launches come
+    # from the servers' threads) once lost records three runs in a row
+    # (PERF.md §7), so no window or timing follows it
+    cheap = sorted(range(PREFIXES), key=lambda k: prefix_calls[k][0])[:WIRE_PREFIXES]
+    wire_phase(card, dev, strings, store, batches, n_all / shard_mg_s, counts,
+               encode_calls, hit_q, want_hits, miss_q,
+               [(prefixes[k], expected[prefixes[k]][:PREFIX_LIMIT], prefix_calls[k][0])
+                for k in cheap])
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
@@ -2265,6 +2296,8 @@ def main() -> int:
              "src/repro/kernels/onpair_decode.py:40")):
         rows = [r for r in per_shape if r["name"] == name]
         total = sum(r["launches"] for r in rows)  # > 0: every kernel launched
+        # (the per-shape rows cover the paths before the wire phase; its
+        # launches, at the rows' shapes, count in ``launches`` below)
 
         def weighted(key, rows=rows, total=total):
             # mean per launch over the paths' mix of shapes
@@ -2491,6 +2524,399 @@ def codecs_phase(card: str, dev: torch.device, strings: list[bytes], artifact,
     log("codecs", f"[{card}] build(codec='onpair16') on the card: backend "
         f"{st16.backend}, corpus == the host codec's; launches {got} == recomputed; the phase's "
         f"launches {phase}; the phase's wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def wire_phase(card: str, dev: torch.device, strings: list[bytes], store, batches,
+               sharded_rate: float, counts: PathCounts, encode_calls, hit_q,
+               want_hits, miss_q, prefix_cases) -> None:
+    """The wire: the read store's shards served by ``repro_torch.net``
+    ``ShardServer``s in this process on ``dev`` and read through a
+    ``DistributedStringStore`` over loopback, every answer checked and
+    every launch recomputed from the requests; then one shard served by a
+    child process (``python -m repro_torch.net``), scraped, killed,
+    restarted on its port and read again. ``prefix_cases`` holds (prefix,
+    the flat store's answer, its decode launches)."""
+    from repro_torch.core.metrics import throughput_mib_s
+    from repro_torch.distributed import save_sharded
+    from repro_torch.kernels import onpair_decode, onpair_encode
+    from repro_torch.net import DistributedStringStore, ShardServer
+    from repro_torch.obs import (fetch_metrics, fetch_traces, find_series,
+                                 hist_state_from_rows, parse_prometheus)
+    from repro_torch.obs.scrape import fetch_text
+
+    counts.start()
+    t_phase = time.perf_counter()
+    n_all = len(strings)
+    raw_bytes = sum(map(len, strings))
+    dc, et, dt = (onpair_decode.decode_compact, onpair_encode.encode_batch,
+                  onpair_decode.decode_tokens)
+    wdir = tempfile.mkdtemp(prefix="chip-smoke-wire-")
+    shard_dir = os.path.join(wdir, "sharded")
+    bounds = save_sharded(store, shard_dir, SERVE_SHARDS)
+    shard_lo = np.asarray([lo for lo, _ in bounds], np.int64)
+    servers: list = []
+    routers: list = []
+    children: list = []
+    errors: list = []
+    child_err = open(os.path.join(wdir, "child.stderr"), "w")
+
+    def start_child(port: int):
+        """``python -m repro_torch.net`` over shard 0 on ``dev``; returns
+        (process, its stdout lines, start time)."""
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.net",
+             os.path.join(shard_dir, "shard-0000"), "--port", str(port),
+             "--metrics-port", "0", "--device", dev.type],
+            stdout=subprocess.PIPE, stderr=child_err, text=True,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        children.append(proc)
+        lines: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: lines.put((proc.stdout.readline(),
+                                                   time.perf_counter())),
+                         daemon=True).start()
+        return proc, lines, time.perf_counter()
+
+    def await_child(child) -> tuple:
+        """(process, port, metrics port, seconds from start to readiness)."""
+        proc, lines, t0 = child
+        try:
+            line, t_ready = lines.get(timeout=WIRE_READY_S)
+        except queue.Empty:
+            line, t_ready = "", t0
+        m = re.search(r"SHARD_SERVER_READY port=(\d+) n_strings=(\d+) writable=1 "
+                      r"metrics_port=(\d+) ", line)
+        if not m or int(m.group(2)) != bounds[0][1] - bounds[0][0]:
+            child_err.flush()
+            with open(child_err.name) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"wire: the child server gave no readiness line "
+                                 f"within {WIRE_READY_S} s: {line!r}\n{tail}")
+        return proc, int(m.group(1)), int(m.group(3)), t_ready - t0
+
+    def shard_calls(id_batches) -> int:
+        """Decode launches of routed multigets, cache off and no tail: one
+        per shard a call touches."""
+        return sum(np.unique(np.searchsorted(shard_lo, np.asarray(ids),
+                                             side="right")).size
+                   for ids in id_batches)
+
+    def run_threads(target, shares) -> float:
+        threads = [threading.Thread(target=target, args=(share,)) for share in shares]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"wire: a client thread hung or failed: {errors[:1]}")
+        return wall
+
+    try:
+        # the child starts first: its start-up overlaps the in-process work
+        child = start_child(0)
+        t0 = time.perf_counter()
+        servers = [ShardServer.from_dir(os.path.join(shard_dir, f"shard-{k:04d}"),
+                                        device=dev, cache_bytes=0).start()
+                   for k in range(SERVE_SHARDS)]
+        open_s = time.perf_counter() - t0
+        dist = DistributedStringStore.connect([s.address for s in servers],
+                                              dir_path=shard_dir)
+        routers.append(dist)
+        if dist.bounds != bounds or not all(s.stats()["writable"] for s in servers):
+            raise AssertionError(f"wire: the router holds bounds {dist.bounds}, the "
+                                 f"shards {bounds}")
+
+        def svc_batches() -> int:
+            return sum(s.service.batches for s in servers)
+
+        # every id, in the read path's shuffled 1,024-id calls, in one
+        # profiled window: the servers' service workers launch, and the
+        # profiler must see every launch (a short window runs again)
+        lat: list = []
+        answers: list = []
+
+        def sweep():
+            lat.clear()
+            answers.clear()
+            for ids in batches:
+                t1 = time.perf_counter()
+                answers.append(dist.multiget(ids))
+                lat.append(time.perf_counter() - t1)
+
+        b0, l0 = svc_batches(), dc.launches
+        (mg_s, acts), win_runs = checked("the wire multiget window",
+                                         lambda: device_window(sweep), counts.kernels)
+        for ids, got in zip(batches, answers):
+            check_strings("wire multiget", got, [strings[i] for i in ids])
+        answers.clear()
+        mg_expect = shard_calls(batches)
+        if (dc.launches - l0, svc_batches() - b0) != (win_runs * mg_expect,) * 2:
+            raise AssertionError(f"wire: {win_runs} sweeps made {dc.launches - l0} "
+                                 f"decode launches in {svc_batches() - b0} service "
+                                 f"batches, expected {mg_expect} a sweep (a call per "
+                                 "shard touched)")
+        mg_p50, mg_p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+        busy = (f"{sum(sec for _, sec in acts.values()) / mg_s:.2%}" if acts
+                else "not measured (the profiler recorded no device time)")
+
+        # get() from client threads: each server's service coalesces them
+        get_ids = np.random.default_rng(SEED + 10).permutation(n_all)[:WIRE_GET_IDS]
+        get_lat: list = []
+
+        def getter(share):
+            mine = []
+            try:
+                for i in share.tolist():
+                    t1 = time.perf_counter()
+                    got = dist.get(i)
+                    mine.append(time.perf_counter() - t1)
+                    if got != strings[i]:
+                        raise AssertionError(f"wire get({i}) differs from its source")
+            except Exception as e:  # re-raised on the main thread
+                errors.append(e)
+            get_lat.extend(mine)
+
+        b0, l0 = svc_batches(), dc.launches
+        get_wall = run_threads(getter, [get_ids[k::SERVE_CLIENTS]
+                                        for k in range(SERVE_CLIENTS)])
+        get_batches, get_launches = svc_batches() - b0, dc.launches - l0
+        if get_launches != get_batches or len(get_lat) != get_ids.size:
+            raise AssertionError(f"wire: get() made {get_launches} decode launches "
+                                 f"in {get_batches} service batches")
+        get_p50, get_p99 = np.percentile(np.asarray(get_lat) * 1e6, [50, 99])
+
+        # scan(0, n) in scan_chunk RPCs while a second connection reads
+        second = DistributedStringStore.connect([s.address for s in servers])
+        routers.append(second)
+        stop = threading.Event()
+        bg_calls: list = []
+
+        def reader():
+            try:
+                j = 0
+                while not stop.is_set():
+                    ids = batches[j % len(batches)]
+                    j += 1
+                    check_strings("wire multiget beside the scan", second.multiget(ids),
+                                  [strings[i] for i in ids])
+                    bg_calls.append(ids)
+            except Exception as e:
+                errors.append(e)
+
+        scans0 = sum(s.op_counts.get("scan", 0) for s in servers)
+        b0, l0, s0 = svc_batches(), dc.launches, dt.launches
+        bg = threading.Thread(target=reader)
+        bg.start()
+        t0 = time.perf_counter()
+        scanned = dist.scan(0, n_all)
+        scan_s = time.perf_counter() - t0
+        bg_during = len(bg_calls)
+        stop.set()
+        bg.join(120)
+        if bg.is_alive() or errors:
+            raise AssertionError(f"wire: the reader beside the scan hung or failed: "
+                                 f"{errors[:1]}")
+        check_strings("wire scan(0, n)", scanned, strings)
+        del scanned
+        scan_rpcs = sum(s.op_counts.get("scan", 0) for s in servers) - scans0
+        want_rpcs = sum(-(-(hi - lo) // dist.scan_chunk) for lo, hi in bounds)
+        bg_expect = shard_calls(bg_calls)
+        if scan_rpcs != want_rpcs or dt.launches - s0 != scan_rpcs or \
+                (dc.launches - l0, svc_batches() - b0) != (bg_expect, bg_expect):
+            raise AssertionError(f"wire: scan(0, n) took {scan_rpcs} RPCs (expected "
+                                 f"{want_rpcs}) and {dt.launches - s0} stream launches; "
+                                 f"the reader's {len(bg_calls)} calls made "
+                                 f"{dc.launches - l0} decode launches in "
+                                 f"{svc_batches() - b0} batches, expected {bg_expect}")
+
+        # locate (misses first: every shard builds every segment's index)
+        # and scan_prefix, before any append: the flat store's answers
+        queries = miss_q[:WIRE_LOCATE_MISSES] + hit_q[:WIRE_LOCATE_HITS]
+        want_loc = [None] * WIRE_LOCATE_MISSES + want_hits[:WIRE_LOCATE_HITS]
+        e0, s0 = et.launches, dt.launches
+        t0 = time.perf_counter()
+        got_loc = [r for i in range(0, len(queries), MULTIGET_IDS)
+                   for r in dist.locate_batch(queries[i : i + MULTIGET_IDS])]
+        loc_s = time.perf_counter() - t0
+        if got_loc != want_loc:
+            raise AssertionError("wire: locate_batch differs from the flat store's")
+        # a shard encodes the queries no earlier shard answered
+        loc_encode = sum(
+            encode_calls(pending)
+            for i in range(0, len(queries), MULTIGET_IDS)
+            for lo in shard_lo.tolist()
+            for pending in ([q for q, a in zip(queries[i : i + MULTIGET_IDS],
+                                               want_loc[i : i + MULTIGET_IDS])
+                             if a is None or a >= lo],)
+            if pending)
+        index_builds = sum(s.store.segments.n_segments for s in servers)
+        if (et.launches - e0, dt.launches - s0) != (loc_encode, index_builds):
+            raise AssertionError(f"wire: locate made {et.launches - e0} encode and "
+                                 f"{dt.launches - s0} stream launches, expected "
+                                 f"{loc_encode} and {index_builds} index builds")
+        prefix_ms, prefix_launches = [], 0
+        for p, want, flat_launches in prefix_cases:
+            l0 = dc.launches
+            t0 = time.perf_counter()
+            got = dist.scan_prefix(p, limit=PREFIX_LIMIT)
+            prefix_ms.append((time.perf_counter() - t0) * 1e3)
+            if got != want or dc.launches - l0 != flat_launches:
+                raise AssertionError(f"wire: scan_prefix({p!r}) made {dc.launches - l0} "
+                                     f"decode launches (flat store {flat_launches}), "
+                                     f"answers equal: {got == want}")
+            prefix_launches += flat_launches
+
+        # extend onto the tail shard; each segment it seals is decoded once
+        # for its index (the shard has located); read back
+        tail = servers[-1].store
+        segs0 = tail.segments.n_segments
+        app = strings[:SERVE_EXTEND]
+        e0, s0 = et.launches, dt.launches
+        t0 = time.perf_counter()
+        app_ids = [i for lo in range(0, SERVE_EXTEND, EXTEND_BATCH)
+                   for i in dist.extend(app[lo : lo + EXTEND_BATCH])]
+        extend_s = time.perf_counter() - t0
+        tail.seal_barrier()
+        seals = tail.segments.n_segments - segs0
+        ext_encode = sum(encode_calls(app[lo : lo + EXTEND_BATCH])
+                         for lo in range(0, SERVE_EXTEND, EXTEND_BATCH))
+        if app_ids != list(range(n_all, n_all + SERVE_EXTEND)) or \
+                (et.launches - e0, dt.launches - s0) != (ext_encode, seals) or \
+                tail.n_strings != bounds[-1][1] - bounds[-1][0] + SERVE_EXTEND:
+            raise AssertionError(f"wire: extend gave ids {app_ids[:2]}..., "
+                                 f"{et.launches - e0} encode and {dt.launches - s0} "
+                                 f"stream launches, expected {ext_encode} and {seals}")
+        read_back = [np.asarray(app_ids[i : i + MULTIGET_IDS]) - bounds[-1][0]
+                     for i in range(0, SERVE_EXTEND, MULTIGET_IDS)]
+        l0 = dc.launches
+        for local in read_back:
+            check_strings("wire appended ids", dist.multiget((local + bounds[-1][0]).tolist()),
+                          [app[i - n_all] for i in (local + bounds[-1][0]).tolist()])
+        sealed = tail.n_sealed
+        tail_calls = sum(bool((local >= sealed).any()) for local in read_back)
+        read_launches = sum(bool((local < sealed).any()) for local in read_back) + tail_calls
+        if dc.launches - l0 != read_launches:
+            raise AssertionError(f"wire: reading the appends back made "
+                                 f"{dc.launches - l0} decode launches, expected "
+                                 f"{read_launches}")
+        inproc_wall = time.perf_counter() - t_phase
+
+        # the child server, over shard 0
+        proc, port, mport, ready_s = await_child(child)
+        cdist = DistributedStringStore.connect([("127.0.0.1", port)])
+        routers.append(cdist)
+        n0 = bounds[0][1] - bounds[0][0]
+        perm = np.random.default_rng(SEED + 11).permutation(n0)
+        calls = [perm[i : i + MULTIGET_IDS].tolist() for i in range(0, n0, MULTIGET_IDS)]
+
+        def read_child() -> tuple[float, float]:
+            """Every id of shard 0 through the router: (seconds of the
+            first call, seconds of the rest)."""
+            t0 = time.perf_counter()
+            got = [cdist.multiget(calls[0])]
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got += [cdist.multiget(ids) for ids in calls[1:]]
+            rest = time.perf_counter() - t0
+            for ids, g in zip(calls, got):
+                check_strings("wire child multiget", g, [strings[i] for i in ids])
+            return first, rest
+
+        first_s, rest_s = read_child()
+        text = fetch_metrics("127.0.0.1", mport)
+        rows = parse_prometheus(text)
+        reqs = find_series(rows, "repro_rpc_requests_total", {"op": "multiget"})
+        hist = hist_state_from_rows(rows, "repro_service_request_latency_us")
+        hcount = re.search(r"^repro_service_request_latency_us_count (\d+)$", text, re.M)
+        traces = fetch_traces("127.0.0.1", mport, 4)
+        health = fetch_text(f"http://127.0.0.1:{mport}/healthz")
+        if [r["value"] for r in reqs] != [len(calls)] or hist is None or \
+                hcount is None or sum(hist["counts"]) != int(hcount.group(1)) \
+                or int(hcount.group(1)) != len(calls) or not isinstance(traces, list) \
+                or health != "ok\n":
+            raise AssertionError(f"wire: the child's /metrics counts {reqs} multiget "
+                                 f"requests for {len(calls)} sent, its latency "
+                                 f"histogram {hist and sum(hist['counts'])} in buckets, "
+                                 f"count {hcount and hcount.group(1)}; /healthz {health!r}")
+        # the child's device memory: the card's free memory before and after
+        # it exits (this process is idle in between)
+        free_alive = torch.cuda.mem_get_info()[0] if dev.type == "cuda" else 0
+        proc.terminate()
+        proc.wait(60)
+        if dev.type == "cuda":
+            time.sleep(1.0)  # an exited process's device memory frees a moment later
+            freed = (torch.cuda.mem_get_info()[0] - free_alive) / 2**20
+            mem_note = (f"the child held {freed:.1f} MiB of the card (free memory "
+                        "before and after it exited), "
+                        f"this process {torch.cuda.memory_reserved() / 2**20:.1f} MiB "
+                        "reserved by torch besides its CUDA context")
+        else:
+            mem_note = "device memory not measured (no card)"
+        _, port2, _, ready2_s = await_child(start_child(port))
+        again_first_s, again_rest_s = read_child()
+        reconnects = cdist.clients[0].reconnects
+        if port2 != port or reconnects < 1:
+            raise AssertionError(f"wire: the restarted child took port {port2} (was "
+                                 f"{port}); the router reconnected {reconnects} times")
+
+        phase = counts.end("wire", ["decode_compact", "encode_batch", "decode_tokens"])
+        expect = {"decode_compact": mg_expect * win_runs + get_launches
+                  + bg_expect + prefix_launches + read_launches,
+                  "encode_batch": loc_encode + ext_encode,
+                  "decode_tokens": scan_rpcs + index_builds + seals}
+        if phase != expect:
+            raise AssertionError(f"wire: launches {phase}, expected {expect}")
+    finally:
+        for r in routers:
+            r.close()
+        for srv in servers:
+            srv.close()
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+            p.wait(60)
+        child_err.close()
+        shutil.rmtree(wdir, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log("wire", f"[{card}] {SERVE_SHARDS} ShardServers in this process (writable, "
+        f"cache_bytes=0) opened in {open_s:.3f} s; router multiget, every id in "
+        f"{len(batches)} shuffled calls of {MULTIGET_IDS} under torch.profiler: "
+        f"{n_all / mg_s:.1f} lookups/s, p50 {mg_p50:.3f} ms, p99 {mg_p99:.3f} ms a "
+        f"call, {mg_expect} decode launches == a call per shard touched == the "
+        f"servers' service batches; in-process ShardedStringStore "
+        f"{sharded_rate:.1f} lookups/s (serve phase, same run)")
+    log("wire", f"[{card}] the sweep's window: {mg_s:.3f} s wall, device busy {busy}, "
+        f"runs {win_runs}; "
+        + "; ".join(f"{k} {n} x, {sec:.4f} s" for k, (n, sec) in sorted(acts.items())))
+    log("wire", f"[{card}] get() from {SERVE_CLIENTS} threads over {get_ids.size} ids: "
+        f"{get_ids.size / get_wall:.1f} requests/s, p50 {get_p50:.1f} us, p99 "
+        f"{get_p99:.1f} us; {get_batches} service batches == decode launches (avg "
+        f"{get_ids.size / get_batches:.2f} a batch)")
+    log("wire", f"[{card}] scan(0, n) through the router: "
+        f"{throughput_mib_s(raw_bytes, scan_s):.1f} MiB/s ({scan_s:.3f} s), {scan_rpcs} "
+        f"RPCs of {dist.scan_chunk} == stream launches; a second connection made "
+        f"{bg_during} multigets during it ({len(bg_calls)} in all, {bg_expect} decode "
+        "launches); bytes == the source")
+    log("wire", f"[{card}] locate_batch of {WIRE_LOCATE_MISSES} misses then "
+        f"{WIRE_LOCATE_HITS} hits: {len(queries) / loc_s:.1f} queries/s ({index_builds} "
+        f"index builds, {loc_encode} encode launches == recomputed); scan_prefix of "
+        f"{[p for p, _, _ in prefix_cases]}: "
+        f"{', '.join(f'{ms:.1f}' for ms in prefix_ms)} ms, {prefix_launches} probes "
+        "== the flat store's; answers == the flat store's")
+    log("wire", f"[{card}] extend of {SERVE_EXTEND} strings onto the tail shard in "
+        f"{extend_s:.3f} s ({SERVE_EXTEND / extend_s:.1f} strings/s, {ext_encode} "
+        f"encode launches, {seals} seals); read back in {len(read_back)} calls "
+        f"({read_launches} decode launches); in-process part {inproc_wall:.1f} s")
+    log("wire", f"[{card}] child `python -m repro_torch.net` (shard 0, {n0} strings): "
+        f"ready {ready_s:.2f} s after start; first 1,024-id call {first_s * 1e3:.1f} "
+        f"ms, then {(len(calls) - 1) / rest_s:.1f} calls/s "
+        f"({(n0 - len(calls[0])) / rest_s:.1f} lookups/s); /metrics multiget requests "
+        f"{len(calls)} == sent, latency buckets sum == count; {mem_note}")
+    log("wire", f"[{card}] child restarted on port {port} (ready {ready2_s:.2f} s after "
+        f"start); read again: first call {again_first_s * 1e3:.1f} ms, then "
+        f"{(len(calls) - 1) / again_rest_s:.1f} calls/s; router reconnects "
+        f"{reconnects}; the phase's launches {phase}; the phase's wall {wall:.1f} s")
 
 
 def decode_all_probe(path: str) -> int:

@@ -2,15 +2,27 @@
 
 One :class:`MetricsRegistry` per process (module-level ``REGISTRY``) collects
 every serving-layer metric under one naming scheme
-(``repro_kernel_decode_batches_total{path="cuda"}`` …) and exports them as a
-JSON snapshot in which instruments sharing a ``(name, labels)`` identity are
-summed, exactly like scraping N collectors. Each store owns its *own*
-instruments (per-instance stats stay meaningful) and attaches them with
-:meth:`MetricsRegistry.register`.
+(``repro_kernel_decode_batches_total{path="cuda"}`` …) and exports it as
+Prometheus text exposition (:func:`render_prometheus`, served by
+:mod:`repro_torch.obs.http`) and as a JSON snapshot (the ``stats`` RPC's
+metrics extension). The names, the snapshot and the text are the
+reference's, byte for byte, so one dashboard and one scraper read both.
 
-A :class:`Counter` increment takes one uncontended per-counter lock; a
-:class:`Histogram` record is a bisect into fixed bucket bounds plus two adds
-under a per-histogram lock. No per-sample list ever grows. Stdlib only.
+* **Cheap on the hot path.** A :class:`Counter` increment takes one
+  uncontended per-counter lock; a :class:`Histogram` record is a bisect into
+  fixed bucket bounds plus two adds under a per-histogram lock. No
+  per-sample list ever grows.
+* **Mergeable across processes and shards.** Histograms are fixed-bucket:
+  two snapshots with the same bounds merge by summing counts
+  (:func:`merge_hist_states`), so per-shard latency distributions pool into
+  one exact histogram.
+* **Instance-isolated, process-aggregated.** Each store, service and server
+  owns its *own* instruments (per-instance stats stay meaningful) and
+  attaches them with :meth:`MetricsRegistry.register`; export sums
+  instruments sharing a ``(name, labels)`` identity, exactly like scraping
+  N collectors.
+
+Stdlib only.
 """
 
 from __future__ import annotations
@@ -42,6 +54,9 @@ class _Instrument:
     def key(self) -> tuple:
         return (self.name, self.labels)
 
+    def label_dict(self) -> dict:
+        return dict(self.labels)
+
 
 class Counter(_Instrument):
     """Monotonic event count, exact under concurrent threads."""
@@ -72,6 +87,9 @@ class Gauge(_Instrument):
 
     def set(self, v: float) -> None:
         self.value = float(v)
+
+    def add(self, dv: float) -> None:
+        self.value += float(dv)
 
     def state(self) -> dict:
         return {"value": self.value}
@@ -106,15 +124,42 @@ class Histogram(_Instrument):
     def record_seconds(self, seconds: float) -> None:
         self.record(seconds * 1e6)
 
+    @property
+    def count(self) -> int:
+        return sum(self.counts)
+
+    def percentile(self, p: float) -> float:
+        """Value at percentile ``p`` (0..100), linearly interpolated inside
+        the bucket the rank falls in."""
+        return _state_percentile(self.state(), p)
+
     def summary(self) -> dict:
         """p50/p99/p999, count and mean, in microseconds."""
         return summarize_hist_state(self.state())
 
     def state(self) -> dict:
-        """JSON-serializable snapshot (the overflow bucket is ``counts[-1]``)."""
+        """JSON-serializable snapshot (the overflow bucket is ``counts[-1]``),
+        the merge and transport format."""
         with self._lock:
             return {"bounds": list(self.bounds), "counts": list(self.counts),
                     "sum": self.sum}
+
+    def merge_state(self, state: dict) -> None:
+        """Fold another snapshot (same bounds) into this histogram."""
+        if list(state["bounds"]) != list(self.bounds):
+            raise ValueError("cannot merge histograms with different bounds")
+        with self._lock:
+            for i, c in enumerate(state["counts"]):
+                self.counts[i] += int(c)
+            self.sum += float(state["sum"])
+
+    @classmethod
+    def from_state(cls, state: dict, name: str = "",
+                   labels: dict | None = None) -> "Histogram":
+        h = cls(name, labels, bounds=tuple(state["bounds"]))
+        h.counts = [int(c) for c in state["counts"]]
+        h.sum = float(state["sum"])
+        return h
 
 
 def _state_percentile(state: dict, p: float) -> float:
@@ -135,6 +180,46 @@ def _state_percentile(state: dict, p: float) -> float:
     return bounds[-1] * 2  # unreachable; overflow upper estimate
 
 
+def merge_hist_states(states) -> dict | None:
+    """Pool histogram snapshots (same bounds) into one; exact — the merged
+    counts equal a histogram of the pooled samples. ``None`` when no state
+    was supplied."""
+    merged: dict | None = None
+    for state in states:
+        if not state:
+            continue
+        if merged is None:
+            merged = {"bounds": list(state["bounds"]),
+                      "counts": [int(c) for c in state["counts"]],
+                      "sum": float(state["sum"])}
+        else:
+            if list(state["bounds"]) != merged["bounds"]:
+                raise ValueError(
+                    "cannot merge histograms with different bounds")
+            for i, c in enumerate(state["counts"]):
+                merged["counts"][i] += int(c)
+            merged["sum"] += float(state["sum"])
+    return merged
+
+
+def diff_hist_states(after: dict | None, before: dict | None) -> dict | None:
+    """Bucket-wise ``after - before`` for two snapshots of the same growing
+    histogram. Negative deltas (a restarted server) clamp to zero;
+    ``before=None`` passes the after state through."""
+    if not after:
+        return None
+    if not before:
+        return {"bounds": list(after["bounds"]),
+                "counts": [int(c) for c in after["counts"]],
+                "sum": float(after["sum"])}
+    if list(after["bounds"]) != list(before["bounds"]):
+        raise ValueError("cannot diff histograms with different bounds")
+    counts = [max(0, int(a) - int(b))
+              for a, b in zip(after["counts"], before["counts"])]
+    return {"bounds": list(after["bounds"]), "counts": counts,
+            "sum": max(0.0, float(after["sum"]) - float(before["sum"]))}
+
+
 def summarize_hist_state(state: dict | None) -> dict:
     """Snapshot -> the unified latency summary dict (us units)."""
     if not state or not sum(state["counts"]):
@@ -149,7 +234,9 @@ def summarize_hist_state(state: dict | None) -> dict:
 
 
 class MetricsRegistry:
-    """Process-wide collection of caller-owned instruments."""
+    """Process-wide instrument collection: :meth:`counter` / :meth:`gauge` /
+    :meth:`histogram` get or create a shared series by ``(name, labels)``;
+    :meth:`register` attaches a caller-owned instrument."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -171,6 +258,9 @@ class MetricsRegistry:
                                 f"registered as {inst.kind}")
             return inst
 
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get_or_create(Counter, name, labels)
+
     def gauge(self, name: str, **labels) -> Gauge:
         return self._get_or_create(Gauge, name, labels)
 
@@ -183,28 +273,96 @@ class MetricsRegistry:
             self._instruments.append(instrument)
         return instrument
 
-    def snapshot(self) -> dict:
-        """JSON-safe dump, one entry per ``(kind, name, labels)`` series:
-        counters and gauges sum, histograms add their bucket counts."""
+    def unregister(self, instrument: _Instrument) -> None:
+        with self._lock:
+            try:
+                self._instruments.remove(instrument)
+            except ValueError:
+                pass
+
+    def _merged(self) -> list[tuple[str, str, tuple, dict]]:
+        """(kind, name, labels, merged state) per series, in first-seen
+        order: counters and gauges sum, histograms add their counts."""
         with self._lock:
             instruments = list(self._instruments)
         series: dict[tuple, dict] = {}
         for inst in instruments:
             key = (inst.kind,) + inst.key
-            state = inst.state()
             prev = series.get(key)
-            if prev is None:
-                series[key] = state
-            elif inst.kind == "histogram":
-                prev["counts"] = [a + b for a, b in
-                                  zip(prev["counts"], state["counts"])]
-                prev["sum"] += state["sum"]
+            if inst.kind == "histogram":
+                series[key] = merge_hist_states([prev, inst.state()])
+            elif prev is None:
+                series[key] = inst.state()
             else:
-                prev["value"] += state["value"]
+                series[key] = {"value": prev["value"] + inst.value}
+        return [(kind, name, labels, state)
+                for (kind, name, labels), state in series.items()]
+
+    def snapshot(self) -> dict:
+        """JSON-safe dump, one entry per ``(kind, name, labels)`` series."""
         return {"metrics": [{"type": kind, "name": name, "labels": dict(labels),
                              **state}
-                            for (kind, name, labels), state in series.items()]}
+                            for kind, name, labels, state in self._merged()]}
+
+    def render_prometheus(self) -> str:
+        return render_prometheus(self)
+
+    def clear(self) -> None:
+        """Drop every instrument (tests only — live code never resets)."""
+        with self._lock:
+            self._instruments.clear()
+            self._shared.clear()
+
+
+def _fmt_labels(labels: tuple, extra: tuple[tuple[str, str], ...] = ()) -> str:
+    pairs = tuple(labels) + tuple(extra)
+    if not pairs:
+        return ""
+
+    def esc(v: str) -> str:
+        return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in pairs) + "}"
+
+
+def _fmt_value(v: float) -> str:
+    return repr(int(v)) if float(v).is_integer() else repr(float(v))
+
+
+def render_prometheus(registry: MetricsRegistry) -> str:
+    """Prometheus text exposition (format 0.0.4) of every series.
+
+    Histograms emit the cumulative ``_bucket{le=...}`` series plus
+    ``_sum``/``_count``; the ``le="+Inf"`` bucket equals the count.
+    """
+    lines: list[str] = []
+    typed: set[str] = set()
+    for kind, name, labels, state in registry._merged():
+        if name not in typed:
+            lines.append(f"# TYPE {name} {kind}")
+            typed.add(name)
+        if kind == "histogram":
+            cum = 0
+            for bound, c in zip(state["bounds"], state["counts"]):
+                cum += c
+                lines.append(
+                    f"{name}_bucket"
+                    f"{_fmt_labels(labels, (('le', _fmt_value(bound)),))}"
+                    f" {cum}")
+            cum += state["counts"][-1]
+            lines.append(
+                f"{name}_bucket{_fmt_labels(labels, (('le', '+Inf'),))} {cum}")
+            lines.append(f"{name}_sum{_fmt_labels(labels)}"
+                         f" {_fmt_value(state['sum'])}")
+            lines.append(f"{name}_count{_fmt_labels(labels)} {cum}")
+        else:
+            lines.append(f"{name}{_fmt_labels(labels)}"
+                         f" {_fmt_value(state['value'])}")
+    return "\n".join(lines) + "\n"
 
 
 #: the process-wide registry every serving module exports through
 REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return REGISTRY

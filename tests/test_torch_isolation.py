@@ -14,6 +14,11 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+#: the wire and its exposition, imported and scanned like every module
+WIRE_MODULES = ("repro_torch.net", "repro_torch.net.__main__",
+                "repro_torch.net.protocol", "repro_torch.net.shard_server",
+                "repro_torch.net.router", "repro_torch.obs.http",
+                "repro_torch.obs.scrape")
 
 
 def _forbidden(module: str) -> bool:
@@ -37,13 +42,15 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'repro'))\n"
-        "print(len(names), bad)\n")
+        "wire = sorted(set(WIRE) - set(names))\n"
+        "print(len(names), bad, wire)\n").replace("WIRE", repr(WIRE_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.strip().split(" ", 1)
+    count, bad, missing = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 20  # every module was imported
     assert bad == "[]"
+    assert missing == "[]"  # the wire's modules among them
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
@@ -58,6 +65,14 @@ def test_source_imports_no_jax_and_no_repro(path):
         else:
             continue
         assert not any(map(_forbidden, names)), f"{path}:{node.lineno} {names}"
+
+
+@pytest.mark.parametrize("module", WIRE_MODULES)
+def test_wire_modules_are_scanned(module):
+    parts = module.split(".")[1:]
+    path = PKG.joinpath(*parts, "__init__.py") if module == "repro_torch.net" \
+        else PKG.joinpath(*parts[:-1], parts[-1] + ".py")
+    assert path in set(PKG.rglob("*.py"))
 
 
 def _run_smoke(cwd: Path, fake_card: bool = False) -> subprocess.CompletedProcess:
