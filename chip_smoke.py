@@ -79,9 +79,24 @@ after:
    repro_torch.net`` in a child process on the card, read through a router,
    its ``/metrics`` counts equal to the requests sent, killed, restarted on
    its port and read again through the same router, which reconnects. The
-   wire runs last, after the kernels' parity checks and timings: its
-   profiled sweep's launches come from the servers' threads, and no other
-   profiled window follows it.
+   wire runs after the kernels' parity checks and timings: its profiled
+   sweep's launches come from the servers' threads, and no other profiled
+   window follows it;
+10. clients and load: ``repro_torch.client.connect`` over ``file://`` (the
+   read store saved), ``mut://`` (a writable copy), ``shard://`` (its four
+   shards) and ``tcp://`` (a ``repro_torch.loadgen.LocalCluster`` of four
+   ``python -m repro_torch.net`` child processes on the card, one a shard),
+   every id read back through each in the read path's shuffled calls (one
+   decode launch a batch of the client-owned service; a call per shard
+   touched for ``shard://``; in each child, its ``/metrics`` decode counter
+   on the card equal to its service's batches of reads, and none on the
+   host), the stats key sets equal across the four; ``get_async`` from
+   eight threads (coalesced by the client), ``repro_torch.loadgen``'s closed
+   loop and an open loop at half its rate over the cluster (the servers'
+   histograms read by the stats RPC and by scrape, equal), ``python -m
+   repro_torch.loadgen --url`` attached to it, and 5,000 appends
+   group-committed onto the tail shard's child and read back. No profiled
+   window: the host clock times it.
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
@@ -139,9 +154,9 @@ STRINGS_PER_SEGMENT = 4096
 PARITY_STRINGS = 4096
 ENCODE_WINDOW = 1 << 16  # strings appended under the profiler
 MULTIGET_WINDOW = 200  # 1024-id batches read under the profiler
-LOCATE_HITS = 100_000  # sampled source strings located on the opened store
+LOCATE_HITS = 50_000  # sampled source strings located on the opened store
 LOCATE_MISSES = 10_000  # absent strings (a source string and one more byte)
-PREFIXES = 20  # scan_prefix prefixes of 1-8 bytes, three paginated to the end
+PREFIXES = 10  # scan_prefix prefixes of 1-8 bytes, three paginated to the end
 PREFIX_LIMIT = 100
 WRITABLE_STRINGS = 1 << 18  # the persist phase's writable store, before extend
 WRITABLE_EXTEND = 5_000  # strings appended before the save and after the open
@@ -153,25 +168,36 @@ SERVE_COLD = [1, 10, 20, 48]  # each shard's local segment demoted (mod its coun
 SERVE_EXTEND = 5_000  # strings appended to the tail shard and through the service
 SERVE_CLIENTS = 8  # threads of service get() calls
 SERVE_MULTIGET_CLIENTS = 4  # threads of 1,024-id service multiget requests
-SERVE_GET_IDS = 100_000  # shuffled ids the get() threads share
+SERVE_GET_IDS = 40_000  # shuffled ids the get() threads share
 WINDOW_TRIES = 3  # profiled runs of a window until one sees every launch
-CODEC_DATA_BYTES = 4 << 20  # the host codecs' corpus: their parse runs in Python
+CODEC_DATA_BYTES = 2 << 20  # the host codecs' corpus: their parse runs in Python
 #: training samples of the host codecs (BPE and FSST train in Python loops)
-CODEC_SAMPLES = {"onpair": 1 << 20, "onpair16": 1 << 20, "bpe": 1 << 18,
-                 "fsst": 1 << 18}
+CODEC_SAMPLES = {"onpair": 1 << 19, "onpair16": 1 << 19, "bpe": 1 << 17,
+                 "fsst": 1 << 17}
 CODEC_ACCESS = 1_000  # seeded random access calls per codec
 CODEC_APPENDS = 10_000  # strings appended to the writable unbounded-OnPair store
-WIRE_GET_IDS = 20_000  # shuffled ids the wire phase's get() threads share
+WIRE_GET_IDS = 8_000  # shuffled ids the wire phase's get() threads share
 WIRE_LOCATE_HITS = 10_000  # of the persist phase's hits, located over the wire
 WIRE_LOCATE_MISSES = 1_000  # of its misses, located first (every index builds)
 WIRE_PREFIXES = 3  # of its prefixes, the three with the fewest probes
 WIRE_READY_S = 120.0  # deadline for the subprocess server's readiness line
+CLIENT_GET_IDS = 20_000  # shuffled ids the client phase's get_async threads share
+CLIENT_APPENDS = 5_000  # strings of 1-32 B appended through the client
+LOADGEN_S = 10.0  # seconds of each loadgen loop (closed, then open at half its rate)
+CLI_S = 3.0  # seconds of the loadgen CLI's run against the cluster
+PROBE_CALLS = 200  # 1,024-id calls a layout of --cluster-probe reads
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
 
 
+#: seconds from the script's start at which each phase logged first
+FIRST_LOG: dict[str, float] = {}
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
+    FIRST_LOG.setdefault(phase, time.perf_counter() - T_START)
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -2286,6 +2312,10 @@ def main() -> int:
                encode_calls, hit_q, want_hits, miss_q,
                [(prefixes[k], expected[prefixes[k]][:PREFIX_LIMIT], prefix_calls[k][0])
                 for k in cheap])
+    # ----------------------------------------------------------- 8. clients
+    # after the wire, with no profiled window: the client over every
+    # frontend, a cluster of child processes and the load harness
+    client_phase(card, dev, strings, store, batches, counts)
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
@@ -2310,6 +2340,9 @@ def main() -> int:
                         "bound_ms": weighted("bound_ms"), "bound_by": "bytes",
                         "library_ms": None, "call_ms": weighted("call_ms"),
                         "path_ms": path_ms.get(name)})
+    log("timing", "seconds from the start at which each phase first logged: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in FIRST_LOG.items())
+        + f"; the end {time.perf_counter() - T_START:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2919,6 +2952,402 @@ def wire_phase(card: str, dev: torch.device, strings: list[bytes], store, batche
         f"{reconnects}; the phase's launches {phase}; the phase's wall {wall:.1f} s")
 
 
+def client_phase(card: str, dev: torch.device, strings: list[bytes], store, batches,
+                 counts: PathCounts) -> None:
+    """Clients and load: ``repro_torch.client.connect`` over ``file://`` (the
+    read store saved), ``mut://`` (a writable copy), ``shard://`` and
+    ``tcp://`` (a ``LocalCluster`` of one ``python -m repro_torch.net`` child
+    process a shard, on ``dev``), every id read back through each; then
+    ``get_async`` coalescing, ``repro_torch.loadgen`` closed and open loops
+    and its CLI over the cluster, and appends group-committed onto the tail
+    shard's child. No profiled window: the wire's runs last among those.
+    The decode launches of this process are checked against the client-owned
+    services' batches (a call per shard touched for ``shard://``), and each
+    child's ``/metrics`` decode counter against its service's batches."""
+    from repro_torch.client import connect
+    from repro_torch.distributed import save_sharded
+    from repro_torch.kernels import onpair_decode
+    from repro_torch.loadgen import (LocalCluster, WorkloadSpec, build_report,
+                                     run_workload)
+    from repro_torch.loadgen.cluster import READY_S
+    from repro_torch.loadgen.slo import (collect_rpc_states, collect_scrape_states,
+                                         shard_clients)
+    from repro_torch.obs import fetch_metrics, find_series, parse_prometheus
+
+    counts.start()
+    t_phase = time.perf_counter()
+    n_all = len(strings)
+    dc = onpair_decode.decode_compact
+    path, other = ("cuda", "ref") if dev.type == "cuda" else ("ref", "cuda")
+    cdir = tempfile.mkdtemp(prefix="chip-smoke-client-")
+    flat, mut = os.path.join(cdir, "flat"), os.path.join(cdir, "mut")
+    shard_dir = os.path.join(cdir, "sharded")
+    store.save(flat)
+    shutil.copytree(flat, mut)  # a plain store dir opens writable too
+    bounds = save_sharded(store, shard_dir, SERVE_SHARDS)
+    shard_lo = np.asarray([lo for lo, _ in bounds], np.int64)
+    spawned: dict = {}
+
+    def spawn():
+        try:
+            t0 = time.perf_counter()
+            spawned["cluster"] = LocalCluster.spawn(shard_dir, n_shards=SERVE_SHARDS,
+                                                    device=dev.type)
+            spawned["seconds"] = time.perf_counter() - t0
+        except BaseException as e:  # re-raised on the main thread
+            spawned["error"] = e
+
+    def shard_calls(id_batches) -> int:
+        return sum(np.unique(np.searchsorted(shard_lo, np.asarray(ids),
+                                             side="right")).size
+                   for ids in id_batches)
+
+    def sweep(client, what: str) -> float:
+        """Every id in the read path's shuffled calls; the seconds."""
+        t0 = time.perf_counter()
+        got = [client.multiget(ids) for ids in batches]
+        wall = time.perf_counter() - t0
+        for ids, g in zip(batches, got):
+            check_strings(f"client {what} multiget", g, [strings[i] for i in ids])
+        return wall
+
+    def child_counts(cluster) -> list[dict]:
+        """Per child, the decode counter by path, from its /metrics."""
+        out = []
+        for h, p in cluster.metrics_addrs:
+            rows = parse_prometheus(fetch_metrics(h, p))
+            out.append({lab: sum(r["value"] for r in find_series(
+                rows, "repro_kernel_decode_batches_total", {"path": lab}))
+                for lab in ("cuda", "ref")})
+        return out
+
+    spawner = threading.Thread(target=spawn)
+    spawner.start()  # the children start while the in-process frontends run
+    cluster = None
+    key_sets: dict = {}
+    rates: dict = {}
+    try:
+        # ---- the in-process frontends, each over every id
+        local = {}
+        for scheme, url in (("file", f"file://{flat}"), ("mut", f"mut://{mut}"),
+                            ("shard", f"shard://{shard_dir}")):
+            l0 = dc.launches
+            with connect(url, device=dev, cache_bytes=0) as client:
+                wall = sweep(client, scheme)
+                snap = client.stats()
+                key_sets[scheme] = frozenset(snap)
+                launches = dc.launches - l0
+                if scheme == "shard":
+                    batches_ = None
+                    want = shard_calls(batches)
+                else:
+                    batches_ = snap["backend"]["service"]["batches"]
+                    want = batches_
+                if launches != want or (batches_ is not None and
+                                        batches_ != len(batches)):
+                    raise AssertionError(f"client {scheme}://: {launches} decode "
+                                         f"launches, service batches {batches_}, "
+                                         f"expected {want}")
+            rates[scheme] = n_all / wall
+            local[scheme] = (launches, batches_, wall)
+        spawner.join(SERVE_SHARDS * READY_S + 60)  # each line has READY_S
+        if "error" in spawned:
+            raise spawned["error"]
+        if spawner.is_alive() or "cluster" not in spawned:
+            raise AssertionError("client: the cluster's spawn did not return")
+        cluster = spawned["cluster"]
+        tcp = connect(cluster.url, **cluster.connect_kw())
+        try:
+            if tcp.backend.bounds != bounds:
+                raise AssertionError(f"client: the cluster's bounds {tcp.backend.bounds}")
+            base = child_counts(cluster)
+            svc0 = [c.stats()["service"] for c in shard_clients(tcp)]
+            tcp_wall = sweep(tcp, "tcp")
+            rates["tcp"] = n_all / tcp_wall
+            key_sets["tcp"] = frozenset(tcp.stats())
+            if len(set(key_sets.values())) != 1:
+                raise AssertionError(f"client: the stats key sets differ: {key_sets}")
+
+            # ---- get_async from threads: the client coalesces them
+            get_ids = np.random.default_rng(SEED + 12).permutation(n_all)[:CLIENT_GET_IDS]
+            errors: list = []
+
+            def getter(share):
+                try:
+                    futs = [(i, tcp.get_async(i)) for i in share.tolist()]
+                    for i, f in futs:
+                        if f.result(120) != strings[i]:
+                            raise AssertionError(f"client get_async({i}) differs")
+                except Exception as e:
+                    errors.append(e)
+
+            st0 = tcp.stats()
+            threads = [threading.Thread(target=getter, args=(get_ids[k::SERVE_CLIENTS],))
+                       for k in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            get_wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads) or errors:
+                raise AssertionError(f"client: a get_async thread hung or failed: "
+                                     f"{errors[:1]}")
+            st1 = tcp.stats()
+            get_batches = st1["get_batches"] - st0["get_batches"]
+            coalesced = st1["coalesced_gets"] - st0["coalesced_gets"]
+
+            # ---- loadgen: closed loop, the servers' histograms both ways
+            def both_ways():
+                rpc = collect_rpc_states(shard_clients(tcp))
+                scraped = collect_scrape_states(cluster.metrics_addrs)
+                if rpc != scraped:
+                    raise AssertionError("loadgen: the servers' histograms by the "
+                                         "stats RPC differ from the scrape's")
+                return rpc
+
+            def loop(spec):
+                before = both_ways()
+                result = run_workload(tcp, spec, LOADGEN_S)
+                after = both_ways()
+                report = build_report(spec, result, before, after, client=tcp,
+                                      metrics_addrs=cluster.metrics_addrs)
+                if result.ops_failed or report["server_latency"]["count"] <= 0:
+                    raise AssertionError(f"loadgen {spec.loop}: {result.ops_failed} "
+                                         f"failed ops {result.first_errors[:2]}")
+                return result, report
+
+            closed, closed_rep = loop(WorkloadSpec(seed=SEED))
+            open_rate = 0.5 * closed.achieved_rate
+            opened, open_rep = loop(WorkloadSpec(loop="open", rate=open_rate,
+                                                 seed=SEED))
+
+            # ---- the CLI, attached to the running cluster
+            t0 = time.perf_counter()
+            cli = subprocess.run(
+                [sys.executable, "-m", "repro_torch.loadgen", "--url", cluster.url,
+                 "--metrics-addrs", ",".join(f"{h}:{p}" for h, p in
+                                             cluster.metrics_addrs),
+                 "--duration", str(CLI_S)], capture_output=True, text=True,
+                timeout=300, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+            cli_wall = time.perf_counter() - t0
+            if cli.returncode not in (0, 1):
+                raise AssertionError(f"loadgen CLI exited {cli.returncode}:\n"
+                                     f"{cli.stderr[-4000:]}")
+            cli_rep = json.loads(cli.stdout)
+            if len(cluster.procs) != SERVE_SHARDS or \
+                    cli_rep["run"]["ops_ok"] <= 0 or cli_rep["run"]["ops_failed"]:
+                raise AssertionError(f"loadgen CLI: {cli_rep['run']}")
+
+            # ---- appends group-committed onto the tail shard's child: one
+            # length cap (<= 32 B), so an extend call is one encode launch
+            tail_client = shard_clients(tcp)[-1]
+            tail0 = tail_client.stats()
+            app = [s for s in strings if 0 < len(s) <= 32][:CLIENT_APPENDS]
+            e0 = tcp.stats()["extend_batches"]
+            t0 = time.perf_counter()
+            futs = [tcp.append_async(s) for s in app]
+            app_ids = [f.result(120) for f in futs]
+            app_wall = time.perf_counter() - t0
+            extend_batches = tcp.stats()["extend_batches"] - e0
+            if app_ids != list(range(n_all, n_all + len(app))):
+                raise AssertionError(f"client: appends got ids {app_ids[:3]}...")
+            deadline = time.perf_counter() + 120
+            while True:  # the child seals off-thread: wait for its commit
+                tail1 = tail_client.stats()
+                if tail1["store"]["n_tail_strings"] < STRINGS_PER_SEGMENT or \
+                        time.perf_counter() > deadline:
+                    break
+                time.sleep(0.05)
+            append_batches = (tail1["service"]["append_batches"]
+                              - tail0["service"]["append_batches"])
+            appended = tail1["service"]["appends"] - tail0["service"]["appends"]
+            if appended != len(app) or tail1["store"]["n_tail_strings"] >= \
+                    STRINGS_PER_SEGMENT:
+                raise AssertionError(f"client: the tail child took {appended} appends; "
+                                     f"tail {tail1['store']['n_tail_strings']}")
+            encode_expect = append_batches  # one launch an extend call
+            sealed_local = tail1["store"]["n_sealed_strings"]
+            lo_tail = bounds[-1][0]
+            read_back = [app_ids[i : i + MULTIGET_IDS]
+                         for i in range(0, len(app_ids), MULTIGET_IDS)]
+            for ids in read_back:
+                check_strings("client appended ids", tcp.multiget(ids),
+                              [app[i - n_all] for i in ids])
+            # a read-back call is one service batch of the tail child: one
+            # decode launch for its sealed ids, one more for its tail ids
+            both = sum(bool((np.asarray(ids) - lo_tail < sealed_local).any()) and
+                       bool((np.asarray(ids) - lo_tail >= sealed_local).any())
+                       for ids in read_back)
+
+            # ---- every child: decode launches == its service's batches
+            after = child_counts(cluster)
+            svc1 = [c.stats()["service"] for c in shard_clients(tcp)]
+            child_rows = []
+            for k, (b, a, s0, s1) in enumerate(zip(base, after, svc0, svc1)):
+                launches = a[path] - b[path]
+                # a batch of reads is one launch; the appends drained alone
+                # (nothing read meanwhile) are the tail child's write batches
+                reads_k = s1["batches"] - s0["batches"] - (
+                    s1["append_batches"] - s0["append_batches"])
+                extra = both if k == SERVE_SHARDS - 1 else 0
+                child_rows.append((int(launches), reads_k))
+                if launches != reads_k + extra or a[other] != 0:
+                    raise AssertionError(
+                        f"client: child {k} made {launches} decode launches "
+                        f"(repro_kernel_decode_batches_total{{path={path}}}) in "
+                        f"{reads_k} service batches of reads (+{extra} read-back "
+                        f"calls touching the sealed part and the tail); "
+                        f"path={other} {a[other]}")
+        finally:
+            tcp.close()
+        phase = counts.end("client", ["decode_compact"])
+        expect = {"decode_compact": sum(l for l, _, _ in local.values()),
+                  "encode_batch": 0, "decode_tokens": 0}
+        if phase != expect:
+            raise AssertionError(f"client: launches {phase}, expected {expect}")
+    finally:
+        spawner.join(300)
+        cluster = cluster or spawned.get("cluster")
+        if cluster is not None:
+            procs = list(cluster.procs)
+            cluster.close()
+            if any(p.poll() is None for p in procs):
+                raise AssertionError("client: a child outlived the cluster's close")
+        shutil.rmtree(cdir, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+
+    def lat(summary: dict) -> str:
+        return (f"p50 {summary['p50_us'] / 1e3:.3f} ms, p99 "
+                f"{summary['p99_us'] / 1e3:.3f} ms")
+
+    log("client", f"[{card}] connect() over every id in {len(batches)} shuffled calls "
+        f"of {MULTIGET_IDS}: file:// {rates['file']:.1f}, mut:// {rates['mut']:.1f}, "
+        f"shard:// {rates['shard']:.1f} lookups/s in this process (decode launches "
+        f"{local['file'][0]} / {local['mut'][0]} == the client-owned services' "
+        f"batches, {local['shard'][0]} == a call per shard touched); tcp:// over "
+        f"{SERVE_SHARDS} `python -m repro_torch.net` child processes "
+        f"{rates['tcp']:.1f} lookups/s; bytes == the source; the stats key sets "
+        f"equal across the four ({len(key_sets['tcp'])} keys)")
+    log("client", f"[{card}] the {SERVE_SHARDS} children ready {spawned['seconds']:.2f} s "
+        f"after their start (started together, beside the in-process sweeps); "
+        f"per child, decode launches (/metrics path={path}) / service batches of "
+        f"reads: "
+        + ", ".join(f"{l} / {b}" for l, b in child_rows)
+        + f" (the tail child +{both} read-back calls touching both its sealed part "
+        f"and its tail); path={other} 0 in every child")
+    log("client", f"[{card}] get_async from {SERVE_CLIENTS} threads over "
+        f"{get_ids.size} ids: {get_ids.size / get_wall:.1f} requests/s, "
+        f"{get_batches} client batches ({coalesced} gets answered in batches of "
+        f"more than one, avg {get_ids.size / get_batches:.1f} a batch)")
+    log("client", f"[{card}] {len(app)} append_async (strings of 1-32 B) in "
+        f"{app_wall:.3f} s ({len(app) / app_wall:.1f} appends/s): {extend_batches} "
+        f"client extend batches, {append_batches} extend calls in the tail child == "
+        f"{encode_expect} encode launches there (recomputed: one a call, one length "
+        f"cap); read back in {len(read_back)} calls, bytes == the source")
+    for name, res, rep in (("closed", closed, closed_rep), ("open", opened, open_rep)):
+        s, c = rep["server_latency"], res.summary()["client_latency"]
+        log("loadgen", f"[{card}] {name} loop, {LOADGEN_S:.0f} s of the "
+            f"default mix (70/30 get/multiget, zipf 1.1"
+            + (f", concurrency {WorkloadSpec().concurrency}" if name == "closed" else
+               f", {open_rate:.1f} arrivals/s = half the closed loop's rate")
+            + f"): {res.achieved_rate:.1f} ops/s achieved, {res.ops_ok} ok, "
+            f"{res.ops_failed} failed, late {res.late}; client {lat(c)}; servers "
+            f"(merged, stats RPC == scrape) {lat(s)}, p999 {s['p999_us'] / 1e3:.3f} "
+            f"ms over {s['count']} requests; goodput {rep['goodput']['rps_under_slo']} "
+            f"ops/s under the {rep['slo']['p99_ms']} ms p99 (passed: {rep['passed']})")
+    log("loadgen", f"[{card}] `python -m repro_torch.loadgen --url` attached for "
+        f"{CLI_S:.0f} s (no spawn of its own): exit {cli.returncode}, "
+        f"{cli_rep['run']['achieved_rate']} ops/s, servers p99 "
+        f"{cli_rep['server_latency']['p99_us'] / 1e3:.3f} ms; {cli_wall:.1f} s with "
+        f"its start-up; the phase's launches in this process {phase}; the phase's "
+        f"wall {wall:.1f} s")
+
+
+def cluster_probe() -> int:
+    """``chip_smoke.py --cluster-probe``: what shard server processes on one
+    card read, and where a call's time goes. Builds the 32 MiB store of the
+    main run, then for each layout spawns a ``LocalCluster`` of ``python -m
+    repro_torch.net`` children, reads ``PROBE_CALLS`` of the read path's
+    shuffled 1,024-id calls through ``connect("tcp://...")`` (checked
+    against the source) and prints one JSON line a layout: lookups/s, the
+    client's p50/p99 a call, and the servers' service p50/p99 (their merged
+    histograms, by the stats RPC). Layouts: four children on the card;
+    the same with one OpenMP thread a child; four on the host (``--device
+    cpu``: no card to share); one child on the card over the whole store."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.client import connect
+    from repro_torch.data.synth import load_dataset
+    from repro_torch.distributed import save_sharded
+    from repro_torch.loadgen import LocalCluster
+    from repro_torch.loadgen.slo import collect_rpc_states, shard_clients
+    from repro_torch.obs import diff_hist_states, merge_hist_states, summarize_hist_state
+    from repro_torch.store import CompressedStringStore
+
+    dev = torch.device("cuda")
+    strings = load_dataset("book_titles", DATA_BYTES, seed=SEED)
+    n_all = len(strings)
+    store = CompressedStringStore.build(strings, sample_bytes=SAMPLE_BYTES, seed=SEED,
+                                        device=dev, cache_bytes=0,
+                                        strings_per_segment=STRINGS_PER_SEGMENT)
+    order = np.random.default_rng(SEED).permutation(n_all)
+    calls = [order[i : i + MULTIGET_IDS].tolist()
+             for i in range(0, PROBE_CALLS * MULTIGET_IDS, MULTIGET_IDS)]
+    pdir = tempfile.mkdtemp(prefix="chip-smoke-probe-")
+    try:
+        for n_shards in (SERVE_SHARDS, 1):
+            save_sharded(store, os.path.join(pdir, str(n_shards)), n_shards)
+        for name, n_shards, device, env in (
+                ("4 children, cuda", SERVE_SHARDS, "cuda", {}),
+                ("4 children, cuda, OMP_NUM_THREADS=1", SERVE_SHARDS, "cuda",
+                 {"OMP_NUM_THREADS": "1"}),
+                ("4 children, cpu", SERVE_SHARDS, "cpu", {}),
+                ("1 child, cuda", 1, "cuda", {})):
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)  # the children inherit this environment
+            try:
+                t0 = time.perf_counter()
+                cluster = LocalCluster.spawn(os.path.join(pdir, str(n_shards)),
+                                             device=device)
+                ready_s = time.perf_counter() - t0
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            try:
+                with connect(cluster.url) as client:
+                    client.multiget(calls[0])  # each child's first launch
+                    before = collect_rpc_states(shard_clients(client))
+                    lat = []
+                    t0 = time.perf_counter()
+                    for ids in calls:
+                        t1 = time.perf_counter()
+                        got = client.multiget(ids)
+                        lat.append(time.perf_counter() - t1)
+                        check_strings(f"probe {name}", got, [strings[i] for i in ids])
+                    wall = time.perf_counter() - t0
+                    after = collect_rpc_states(shard_clients(client))
+            finally:
+                cluster.close()
+            server = summarize_hist_state(merge_hist_states(
+                [diff_hist_states(a, b) for a, b in zip(after, before)]))
+            p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+            print(json.dumps({"layout": name, "ready_s": round(ready_s, 2),
+                              "lookups_per_s": round(len(calls) * MULTIGET_IDS / wall, 1),
+                              "call_p50_ms": round(float(p50), 3),
+                              "call_p99_ms": round(float(p99), 3),
+                              "service_p50_ms": round(server["p50_us"] / 1e3, 3),
+                              "service_p99_ms": round(server["p99_us"] / 1e3, 3),
+                              "service_requests": server["count"]}), flush=True)
+    finally:
+        shutil.rmtree(pdir, ignore_errors=True)
+    return 0
+
+
 def decode_all_probe(path: str) -> int:
     """``chip_smoke.py --decode-all-probe FILE``: time four calls of
     ``Decoder.decode_all`` on the dictionary and corpus saved in FILE, in
@@ -2996,4 +3425,6 @@ if __name__ == "__main__":
         sys.exit(decode_all_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--open-probe"]:
         sys.exit(open_probe(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--cluster-probe"]:
+        sys.exit(cluster_probe())
     sys.exit(main())

@@ -19,6 +19,15 @@ WIRE_MODULES = ("repro_torch.net", "repro_torch.net.__main__",
                 "repro_torch.net.protocol", "repro_torch.net.shard_server",
                 "repro_torch.net.router", "repro_torch.obs.http",
                 "repro_torch.obs.scrape")
+#: the clients, the load harness and the launcher, named so that a module
+#: the package walk misses fails the import check; the ``__main__`` ones
+#: run nothing when imported
+CLIENT_MODULES = ("repro_torch.client", "repro_torch.client.session",
+                  "repro_torch.client.url", "repro_torch.loadgen",
+                  "repro_torch.loadgen.__main__", "repro_torch.loadgen.spec",
+                  "repro_torch.loadgen.driver", "repro_torch.loadgen.slo",
+                  "repro_torch.loadgen.cluster", "repro_torch.launch",
+                  "repro_torch.launch.serve")
 
 
 def _forbidden(module: str) -> bool:
@@ -43,14 +52,15 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'repro'))\n"
         "wire = sorted(set(WIRE) - set(names))\n"
-        "print(len(names), bad, wire)\n").replace("WIRE", repr(WIRE_MODULES))
+        "print(len(names), bad, wire)\n").replace(
+            "WIRE", repr(WIRE_MODULES + CLIENT_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad, missing = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 20  # every module was imported
     assert bad == "[]"
-    assert missing == "[]"  # the wire's modules among them
+    assert missing == "[]"  # the wire's and the clients' modules among them
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
@@ -67,12 +77,35 @@ def test_source_imports_no_jax_and_no_repro(path):
         assert not any(map(_forbidden, names)), f"{path}:{node.lineno} {names}"
 
 
+def _module_path(module: str) -> Path:
+    parts = module.split(".")[1:]
+    package = PKG.joinpath(*parts, "__init__.py")
+    return package if package.exists() else PKG.joinpath(*parts[:-1],
+                                                          parts[-1] + ".py")
+
+
 @pytest.mark.parametrize("module", WIRE_MODULES)
 def test_wire_modules_are_scanned(module):
-    parts = module.split(".")[1:]
-    path = PKG.joinpath(*parts, "__init__.py") if module == "repro_torch.net" \
-        else PKG.joinpath(*parts[:-1], parts[-1] + ".py")
-    assert path in set(PKG.rglob("*.py"))
+    assert _module_path(module) in set(PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", CLIENT_MODULES)
+def test_client_modules_are_scanned(module):
+    assert _module_path(module) in set(PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", [m for m in WIRE_MODULES + CLIENT_MODULES
+                                    if m.endswith("__main__")
+                                    or m == "repro_torch.launch.serve"])
+def test_entry_modules_run_nothing_when_imported(module):
+    tree = ast.parse(_module_path(module).read_text())
+    top = [n for n in tree.body if not isinstance(
+        n, (ast.Import, ast.ImportFrom, ast.FunctionDef, ast.ClassDef))]
+    # a docstring, constants, and the one `if __name__ == "__main__":` guard
+    guards = [n for n in top if isinstance(n, ast.If)]
+    assert len(guards) == 1 and ast.unparse(guards[0].test) == \
+        "__name__ == '__main__'"
+    assert all(isinstance(n, (ast.Expr, ast.Assign, ast.If)) for n in top)
 
 
 def _run_smoke(cwd: Path, fake_card: bool = False) -> subprocess.CompletedProcess:

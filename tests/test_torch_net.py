@@ -18,8 +18,10 @@ server CLI refusing to start without CUDA unless given ``--device cpu``.
 
 The reference's StoreService cases of ``tests/test_net.py`` are ported in
 ``tests/test_torch_service.py``. Spawned servers run ``python -m
-repro_torch.net ... --device cpu``; their readiness line is read with a
-deadline, and every child is killed and reaped in a ``finally``."""
+repro_torch.net ... --device cpu`` (the restart case starts one shard
+through ``python -m repro_torch.launch.serve --shard-server``, as the
+reference's starts one through its launcher); their readiness line is read
+with a deadline, and every child is killed and reaped in a ``finally``."""
 
 import os
 import queue
@@ -156,10 +158,14 @@ def _stop(proc) -> str:
     return err
 
 
-def _spawn_server(args, env=None):
-    """Start ``python -m repro_torch.net ... --device cpu``; returns (proc,
-    (host, port)) once its readiness line came, within READY_S."""
-    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.net", *args,
+def _spawn_server(args, env=None, via_launcher=False):
+    """Start ``python -m repro_torch.net ... --device cpu`` (or, with
+    ``via_launcher``, ``python -m repro_torch.launch.serve --shard-server
+    ...``); returns (proc, (host, port)) once its readiness line came,
+    within READY_S."""
+    entry = (["repro_torch.launch.serve", "--shard-server"] if via_launcher
+             else ["repro_torch.net"])
+    proc = subprocess.Popen([sys.executable, "-m", *entry, *args,
                              "--device", "cpu"],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env or CHILD_ENV)
@@ -642,8 +648,10 @@ def test_router_retries_across_server_restart(titles, ref_art, tmp_path):
     procs, addrs = [], []
     dist = None
     try:
-        for sd in shard_dirs:
-            proc, addr = _spawn_server([sd])
+        for k, sd in enumerate(shard_dirs):
+            # shard 0 via the launcher (its --shard-server role), shard 1
+            # via python -m repro_torch.net
+            proc, addr = _spawn_server([sd], via_launcher=(k == 0))
             procs.append(proc)
             addrs.append(addr)
         dist = DistributedStringStore.connect(addrs, dir_path=d)

@@ -12,11 +12,11 @@ Prometheus text and ``snapshot()`` with the reference's for the same
 records, and of what each package's scraper reads back; and a spawned port
 server's ``/metrics``, ``/traces`` and ``/healthz``.
 
-Where the reference's span-chain case opens its root span in
-``repro.client`` (a module the port does not have yet), these cases open
-the root span ``client.multiget`` themselves around the router's
-``multiget``. The reference's ``record_child`` and slow-request ring cases
-are ported in ``tests/test_torch_service.py``."""
+The span-chain cases open their root span ``client.multiget`` through the
+port's client, as the reference's do: ``connect("shard://...")`` and
+``connect("tcp://...")`` of :mod:`repro_torch.client`. The reference's
+``record_child`` and slow-request ring cases are ported in
+``tests/test_torch_service.py``."""
 
 import json
 import math
@@ -39,8 +39,9 @@ import repro.obs as ref_obs
 from repro.data.synth import load_dataset as ref_load_dataset
 from repro.obs import scrape as ref_scrape
 from repro_torch import obs
+from repro_torch.client import connect
 from repro_torch.data.synth import load_dataset
-from repro_torch.distributed import ShardedStringStore, save_sharded
+from repro_torch.distributed import save_sharded
 from repro_torch.net import DistributedStringStore, RemoteShardClient, ShardServer
 from repro_torch.net import protocol as P
 from repro_torch.obs import (REGISTRY, TRACER, Counter, Histogram,
@@ -477,9 +478,11 @@ def test_caps_probe_against_new_server(server):
 # ----------------------------------------------------------------- end-to-end
 def test_trace_spans_local_shard_multiget(sharded_dir):
     TRACER.clear()
-    local = ShardedStringStore.open(sharded_dir, device=CPU)
-    with TRACER.span("client.multiget", root=True):
-        assert len(local.multiget([0, 1, 2, 5])) == 4
+    client = connect(f"shard://{sharded_dir}", device=CPU)
+    try:
+        assert len(client.multiget([0, 1, 2, 5])) == 4
+    finally:
+        client.close()
     trace = next(t for t in TRACER.trace_dump(8) if t["root"] == "client.multiget")
     names = {s["name"] for s in trace["spans"]}
     assert {"client.multiget", "store.decode"} <= names
@@ -488,12 +491,12 @@ def test_trace_spans_local_shard_multiget(sharded_dir):
 
 def test_tcp_multiget_trace_has_full_span_chain(tcp_cluster):
     TRACER.clear()
-    dist = DistributedStringStore.connect([s.address for s in tcp_cluster])
+    url = "tcp://" + ",".join(f"{h}:{p}" for h, p in (s.address for s in tcp_cluster))
+    client = connect(url)
     try:
-        with TRACER.span("client.multiget", root=True):
-            assert len(dist.multiget([0, 1, 2, 3])) == 4
+        assert len(client.multiget([0, 1, 2, 3])) == 4
     finally:
-        dist.close()
+        client.close()
     trace = next(t for t in TRACER.trace_dump(8) if t["root"] == "client.multiget")
     names = {s["name"] for s in trace["spans"]}
     # the chain: client -> socket -> server -> coalesce -> decode

@@ -11,10 +11,20 @@ appends, the idle worker's zero wakeups, ``close()`` landing mid-batch, the
 adaptive wait controller, ``stats()``'s keys, the service's instruments in
 the registry, and the tracer's queue hops (``record_child``,
 ``activate``/``restore``, ``new_context``, ``trace_dump``) with the
-``service.coalesce`` and ``store.decode`` spans they book."""
+``service.coalesce`` and ``store.decode`` spans they book.
 
+A wait on the service that times out, in a client thread or in the case
+itself, and a client thread still alive after its join, first write every
+thread's stack to stderr (``faulthandler``), so a stall of the worker
+shows where each thread stood."""
+
+import contextlib
+import faulthandler
+import sys
 import threading
 import time
+import traceback
+from concurrent.futures import TimeoutError as FuturesTimeout
 
 import numpy as np
 import pytest
@@ -88,6 +98,31 @@ def _mutable_pair(port_art, ref_art, strings, **kw):
     return port, RefMutable(ref_art, ref_corpus, **kw)
 
 
+def _dump_all_stacks(why: str) -> None:
+    """Write every thread's stack to stderr, where pytest shows it beside
+    the failure; by ``faulthandler`` where stderr has a file descriptor,
+    else from the interpreter's frames."""
+    sys.stderr.write(f"\n--- {why}: the stack of every thread ---\n")
+    try:
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    except (AttributeError, ValueError, OSError):  # stderr without a fileno
+        names = {t.ident: t.name for t in threading.enumerate()}
+        for ident, frame in sys._current_frames().items():
+            sys.stderr.write(f"Thread {names.get(ident, ident)}:\n")
+            sys.stderr.write("".join(traceback.format_stack(frame)))
+    sys.stderr.flush()
+
+
+@contextlib.contextmanager
+def _stacks_on_timeout():
+    """Re-raise a timed-out service wait after dumping every thread's stack."""
+    try:
+        yield
+    except FuturesTimeout:
+        _dump_all_stacks("a wait on the service timed out")
+        raise
+
+
 def _run_threads(targets) -> None:
     """Start every (fn, args), join each within JOIN_S, assert all dead."""
     threads = [threading.Thread(target=fn, args=args) for fn, args in targets]
@@ -95,6 +130,8 @@ def _run_threads(targets) -> None:
         t.start()
     for t in threads:
         t.join(JOIN_S)
+    if any(t.is_alive() for t in threads):
+        _dump_all_stacks("a client thread outlived its join")
     assert not any(t.is_alive() for t in threads), "a client thread hung"
 
 
@@ -122,8 +159,9 @@ def test_service_coalesces_and_matches(titles, port_art, ref_art):
 
             def client(chunk, svc=svc, got=got):
                 try:
-                    for i in chunk:
-                        got[int(i)] = svc.get(int(i))
+                    with _stacks_on_timeout():
+                        for i in chunk:
+                            got[int(i)] = svc.get(int(i))
                 except Exception as e:  # surfaced after join
                     errs.append(e)
 
@@ -148,7 +186,8 @@ def test_service_multiget_one_decode_batch_a_drain(titles, port_art, ref_art):
     port, want = _pair(port_art, ref_art, titles[:1000], cache_bytes=0)
     ids = np.random.default_rng(4).permutation(1000).tolist()
     decodes0 = ops._DECODE_BATCHES["ref"].value
-    with StoreService(port, max_batch=512, max_wait_s=0.05) as svc:
+    with StoreService(port, max_batch=512, max_wait_s=0.05) as svc, \
+            _stacks_on_timeout():
         futs = [svc.submit(i) for i in ids[:400]]
         futs.append(svc.submit_multiget(ids[400:]))
         got = [f.result(30) for f in futs]
@@ -200,7 +239,8 @@ def test_service_interleaved_reads_and_appends(titles, port_art, ref_art):
         def writer():
             try:
                 futs = [svc.submit_append(s) for s in appended]
-                ids = [f.result(30) for f in futs]
+                with _stacks_on_timeout():
+                    ids = [f.result(30) for f in futs]
                 # appends fold into ordered extend() batches: ids come back
                 # contiguous from 400
                 assert ids == list(range(400, 600))
@@ -216,7 +256,9 @@ def test_service_interleaved_reads_and_appends(titles, port_art, ref_art):
                     assert n >= last_n            # monotonic growth
                     last_n = n
                     i = int(rng.integers(0, 400))  # stable prefix
-                    assert svc.get(i, timeout=30) == base[i]
+                    with _stacks_on_timeout():
+                        got = svc.get(i, timeout=30)
+                    assert got == base[i]
             except Exception as e:
                 errs.append(e)
 
@@ -246,7 +288,8 @@ def test_service_append_batches_equal_extend_calls(titles, port_art, ref_art):
         return real(strings)
 
     port.extend = counting
-    with StoreService(port, max_batch=32, max_wait_s=0.001) as svc:
+    with StoreService(port, max_batch=32, max_wait_s=0.001) as svc, \
+            _stacks_on_timeout():
         futs = [svc.submit_append(s) for s in titles[300:420]]
         futs.append(svc.submit_extend(titles[420:450]))
         got = [f.result(30) for f in futs]
