@@ -96,7 +96,20 @@ after:
    histograms read by the stats RPC and by scrape, equal), ``python -m
    repro_torch.loadgen --url`` attached to it, and 5,000 appends
    group-committed onto the tail shard's child and read back. No profiled
-   window: the host clock times it.
+   window: the host clock times it;
+11. the LM serving path (``repro_torch.launch.serve``'s LM role): every
+   architecture at its smoke config in fp32 on the card against the same
+   weights on the host (TF32 off; logits within the CPU tests' 1e-4, equal
+   greedy ids, forward, prefill and 8 decode steps past ``max_seq``), then
+   in bf16 on the card (shapes, finite); mamba2-780m at full width in bf16
+   through ``serve_lm --doc-ids 3 17 4242 --max-new 16``, the store built on
+   the encode kernel (its launches recomputed) and the prompts fetched by
+   one multiget (one decode launch), equal to the corpus strings, every
+   logit finite; the same weights in fp32 on the card and on the host, and
+   prefill against decode on the card, each within 1e-3 of the largest
+   logit; one more bf16 decode step of the launcher's run under the
+   profiler, beside its bound. ``--lm-probe SRC`` times that step alone
+   with ``repro_torch`` imported from SRC (two trees in one call).
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
@@ -128,6 +141,7 @@ from __future__ import annotations
 
 import bisect
 import cProfile
+import faulthandler
 import hashlib
 import json
 import os
@@ -181,11 +195,20 @@ WIRE_LOCATE_HITS = 10_000  # of the persist phase's hits, located over the wire
 WIRE_LOCATE_MISSES = 1_000  # of its misses, located first (every index builds)
 WIRE_PREFIXES = 3  # of its prefixes, the three with the fewest probes
 WIRE_READY_S = 120.0  # deadline for the subprocess server's readiness line
-CLIENT_GET_IDS = 20_000  # shuffled ids the client phase's get_async threads share
+CLIENT_GET_IDS = 10_000  # shuffled ids the client phase's get_async threads share
 CLIENT_APPENDS = 5_000  # strings of 1-32 B appended through the client
-LOADGEN_S = 10.0  # seconds of each loadgen loop (closed, then open at half its rate)
+LOADGEN_S = 5.0  # seconds of each loadgen loop (closed, then open at half its rate)
 CLI_S = 3.0  # seconds of the loadgen CLI's run against the cluster
 PROBE_CALLS = 200  # 1,024-id calls a layout of --cluster-probe reads
+LM_ARCH = "mamba2-780m"  # the launcher's default architecture, at full width
+LM_DOC_IDS = [3, 17, 4242]  # prompts fetched from the launcher's store
+LM_MAX_NEW = 16  # greedy decode steps of the launcher's run
+LM_SMOKE_DECODE = 8  # decode steps of each smoke config, card against host
+LM_SMOKE_MAX_SEQ = 20  # their cache length: the steps run past it
+LM_SMOKE_TOL = 1e-4  # the CPU tests' whole-model tolerance (rtol and atol)
+LM_FP32_DECODE = 4  # decode steps of the full-width fp32 comparisons
+LM_GATE = 1e-3  # max abs logit error / max |logit| at full width in fp32
+LM_PROBE_STEPS = 32  # timed decode steps of --lm-probe, after 2 untimed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
@@ -320,6 +343,39 @@ def device_window(fn) -> tuple[tuple[float, dict[str, list]], dict[str, int], st
     return (wall, acts), seen, note
 
 
+def lm_step_bytes(params: dict, cache: dict, cfg, batch: int) -> int:
+    """Bytes one decode step must move: every weight of the decoder read
+    once (with a separate head, only the batch's rows of the embedding),
+    every cache leaf read once, the SSM state and conv tails written back
+    and one slot of each self-attention KV cache written. Every expert of
+    a MoE layer counts as read (the launcher's mamba2-780m has none)."""
+    from repro_torch.models.transformer import block_plan
+
+    def nbytes(t: torch.Tensor) -> int:
+        return t.numel() * t.element_size()
+
+    def leaves(tree: dict):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from ((f"{k}/{kk}", vv) for kk, vv in leaves(v))
+            else:
+                yield k, v
+
+    total = sum(nbytes(v) for k, v in leaves(params)
+                if not k.startswith("enc_blocks/"))
+    if not cfg.tie_embeddings:
+        emb = params["embed"]
+        total -= nbytes(emb) - batch * emb.shape[1] * emb.element_size()
+    for i, sub in enumerate(block_plan(cfg)):
+        for k, v in cache["blocks"][f"l{i}"].items():
+            total += nbytes(v)  # read once
+            if sub.kind == "ssm":
+                total += nbytes(v)  # written back
+            elif sub.kind != "cross" and k in ("k", "v"):
+                total += nbytes(v) // v.shape[2]  # one slot written
+    return total
+
+
 def encode_launch_shapes(strings: list[bytes], caps0, pad_batch: int,
                          chunk_bytes: int) -> list:
     """The (strings, cap) of each launch the bucketed encode makes for
@@ -400,6 +456,14 @@ class PathCounts:
         for name, n in launches.items():
             self.total[name] += n
         return launches
+
+
+def raise_if_clients_failed(what: str, threads, errors: list) -> None:
+    """Raise if a client thread is still alive or failed, after writing every
+    thread's stack to stderr: a stalled service worker shows where it stood."""
+    if any(t.is_alive() for t in threads) or errors:
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        raise AssertionError(f"{what} hung or failed: {errors[:1]}")
 
 
 def main() -> int:
@@ -1465,8 +1529,7 @@ def main() -> int:
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads) or errors:
-            raise AssertionError(f"serve: a client thread hung or failed: {errors[:1]}")
+        raise_if_clients_failed("serve: a client thread", threads, errors)
         return wall
 
     def getter(share):
@@ -2316,6 +2379,10 @@ def main() -> int:
     # after the wire, with no profiled window: the client over every
     # frontend, a cluster of child processes and the load harness
     client_phase(card, dev, strings, store, batches, counts)
+    # --------------------------------------------------------------- 9. LM
+    # the launcher's LM role: prompts fetched through the decode kernel from
+    # a store built on the encode kernel, prefill and decode on the card
+    lm_phase(card, dev, counts)
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
@@ -2641,8 +2708,7 @@ def wire_phase(card: str, dev: torch.device, strings: list[bytes], store, batche
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
-        if any(t.is_alive() for t in threads) or errors:
-            raise AssertionError(f"wire: a client thread hung or failed: {errors[:1]}")
+        raise_if_clients_failed("wire: a client thread", threads, errors)
         return wall
 
     try:
@@ -3090,9 +3156,7 @@ def client_phase(card: str, dev: torch.device, strings: list[bytes], store, batc
             for t in threads:
                 t.join(600)
             get_wall = time.perf_counter() - t0
-            if any(t.is_alive() for t in threads) or errors:
-                raise AssertionError(f"client: a get_async thread hung or failed: "
-                                     f"{errors[:1]}")
+            raise_if_clients_failed("client: a get_async thread", threads, errors)
             st1 = tcp.stats()
             get_batches = st1["get_batches"] - st0["get_batches"]
             coalesced = st1["coalesced_gets"] - st0["coalesced_gets"]
@@ -3264,6 +3328,218 @@ def client_phase(card: str, dev: torch.device, strings: list[bytes], store, batc
         f"wall {wall:.1f} s")
 
 
+def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> None:
+    """The LM serving path (``repro_torch.launch.serve``'s LM role): every
+    architecture at its smoke config in fp32 on the card against the same
+    weights on the host (TF32 off), then bf16 on the card; mamba2-780m at
+    full width through ``serve_lm`` with ``--doc-ids`` (the store built on
+    the encode kernel, the prompts fetched by one multiget on the decode
+    kernel), in bf16; the same weights in fp32 on the card and on the host
+    over its prompt batch; and prefill against decode at full width on the
+    card; one more bf16 step of the launcher's weights and cache under the
+    profiler, beside its bound. Every check raises."""
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.data.synth import load_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import CORPUS_BYTES, build_parser, serve_lm
+    from repro_torch.models.model import (build_params, demo_batch, model_forward,
+                                          serve_decode, serve_prefill, to_device)
+
+    t_phase = time.perf_counter()
+    host = torch.device("cpu")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+        """Max absolute error over the max absolute value of ``want``."""
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    def agree(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+        """The card's logits against the host's, within the CPU tests'
+        whole-model tolerance; greedy ids equal."""
+        got = got.float().cpu()
+        if got.shape != want.shape or not torch.allclose(
+                got, want, rtol=LM_SMOKE_TOL, atol=LM_SMOKE_TOL):
+            raise AssertionError(f"lm {what}: card and host logits differ beyond "
+                                 f"{LM_SMOKE_TOL} (max abs err "
+                                 f"{(got - want).abs().max():.3e})")
+        if not torch.equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError(f"lm {what}: greedy ids differ")
+        return rel_err(got, want)
+
+    def finite(what: str, t: torch.Tensor, shape: tuple) -> None:
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"lm {what}: {tuple(t.shape)} (expected {shape}) "
+                                 "or a value that is not finite")
+
+    try:
+        with torch.inference_mode():
+            # ---- 1. every architecture at its smoke config
+            t0 = time.perf_counter()
+            worst = {}
+            for name in sorted(REGISTRY):
+                cfg = replace(REGISTRY[name].smoke(), dtype="float32")
+                p_host = build_params(cfg, seed=0, device=host)
+                p_card = to_device(p_host, dev)
+                batch = demo_batch(cfg, 2, 32, kind="train", device=host)
+                errs = [agree(f"{name} forward",
+                              model_forward(p_card, to_device(batch, dev), cfg),
+                              model_forward(p_host, batch, cfg))]
+                pb = demo_batch(cfg, 2, 16, kind="prefill", seed=1, device=host)
+                lh, ch = serve_prefill(p_host, pb, cfg, max_seq=LM_SMOKE_MAX_SEQ)
+                lc, cc = serve_prefill(p_card, to_device(pb, dev), cfg,
+                                       max_seq=LM_SMOKE_MAX_SEQ)
+                errs.append(agree(f"{name} prefill", lc, lh))
+                for step in range(LM_SMOKE_DECODE):  # past max_seq from step 4
+                    tok = lh.argmax(-1)[:, None].to(torch.int32)
+                    lh, ch = serve_decode(p_host, ch, {"token": tok}, cfg)
+                    lc, cc = serve_decode(p_card, cc, {"token": tok.to(dev)}, cfg)
+                    errs.append(agree(f"{name} decode step {step}", lc, lh))
+                worst[name] = max(errs)
+                # bf16 on the card: shapes and finiteness
+                cfg16 = REGISTRY[name].smoke()
+                p16 = build_params(cfg16, seed=0, device=dev)
+                V = cfg16.vocab_size
+                finite(f"{name} bf16 forward", model_forward(
+                    p16, demo_batch(cfg16, 2, 32, device=dev), cfg16), (2, 32, V))
+                lg, c16 = serve_prefill(
+                    p16, demo_batch(cfg16, 2, 16, kind="prefill", seed=1, device=dev),
+                    cfg16, max_seq=LM_SMOKE_MAX_SEQ)
+                finite(f"{name} bf16 prefill", lg, (2, V))
+                for step in range(LM_SMOKE_DECODE):
+                    lg, c16 = serve_decode(p16, c16, {"token": lg.argmax(-1)[:, None]
+                                                      .to(torch.int32)}, cfg16)
+                    finite(f"{name} bf16 decode step {step}", lg, (2, V))
+            torch.cuda.synchronize()
+            log("lm", f"[{card}] {len(worst)} smoke configs, fp32 on the card == the "
+                f"host within rtol=atol={LM_SMOKE_TOL} and equal greedy ids over "
+                f"forward, prefill (S 16, max_seq {LM_SMOKE_MAX_SEQ}) and "
+                f"{LM_SMOKE_DECODE} decode steps; max abs err / max |logit| per "
+                "arch: " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                + f"; bf16 on the card finite; {time.perf_counter() - t0:.1f} s")
+
+        # ---- 2. mamba2-780m at full width through the launcher's LM role
+        args = build_parser().parse_args(
+            ["--arch", LM_ARCH, "--doc-ids", *map(str, LM_DOC_IDS),
+             "--max-new", str(LM_MAX_NEW)])
+        corpus = load_dataset("book_titles", CORPUS_BYTES)
+        want_encode = len(encode_launch_shapes(corpus, ops._ENCODE_LEN_BUCKETS,
+                                               ops._ENCODE_PAD_BATCH,
+                                               ops._ENCODE_CHUNK_BYTES))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.start()
+        t0 = time.perf_counter()
+        out = serve_lm(args, dev)
+        serve_s = time.perf_counter() - t0
+        launches = counts.end("lm", ["decode_compact", "encode_batch"])
+        peak = torch.cuda.max_memory_allocated()
+        cfg = out["cfg"]
+        if cfg != replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE):
+            raise AssertionError(f"lm: not {LM_ARCH} at full width: {cfg}")
+        check_strings("lm --doc-ids prompts", out["docs"],
+                      [corpus[i] for i in LM_DOC_IDS])
+        if launches != {"decode_compact": 1, "encode_batch": want_encode,
+                        "decode_tokens": 0}:
+            raise AssertionError(f"lm: launches {launches}, expected one multiget "
+                                 f"(1 decode launch) and {want_encode} encode "
+                                 "launches for the store build")
+        B = len(out["ids"])
+        if not out["logits_finite"] or out["generated"].shape != (B, LM_MAX_NEW):
+            raise AssertionError("lm: a logit that is not finite, or "
+                                 f"{out['generated'].shape} generated ids")
+        n_tok = LM_MAX_NEW * B
+        log("lm", f"[{card}] {LM_ARCH} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, ssm_state {cfg.ssm_state}, vocab {cfg.vocab_size}, "
+            f"{cfg.dtype}) through serve_lm --doc-ids {LM_DOC_IDS} --max-new "
+            f"{LM_MAX_NEW}: prompts {tuple(out['tokens'].shape)}, fetched docs == "
+            f"the corpus strings; prefill {out['prefill_s']:.4f} s, decode "
+            f"{n_tok} tokens in {out['decode_s']:.4f} s ({n_tok / out['decode_s']:.1f} "
+            f"tok/s, {out['decode_s'] / LM_MAX_NEW * 1e3:.2f} ms a step of batch "
+            f"{B}); serve_lm {serve_s:.1f} s in all (tokenizer, weights, store); peak "
+            f"device memory {peak / 2**30:.3f} GiB; launches {launches} (encode "
+            f"recomputed from the 1 MiB corpus's length caps)")
+        # where a served decode step's time goes: one more bf16 step of the
+        # launcher's own weights and cache under the profiler
+        p16, c16 = out.pop("params"), out.pop("cache")
+        tok = torch.from_numpy(out["generated"][:, -1:]).to(dev, torch.int32)
+        with torch.inference_mode():
+            (wall, acts), _, _ = device_window(
+                lambda: serve_decode(p16, c16, {"token": tok}, cfg))
+        step_bytes = lm_step_bytes(p16, c16, cfg, B)
+        del p16, c16
+        n_rec = sum(n for n, _ in acts.values())
+        busy = sum(sec for _, sec in acts.values())
+        log("lm", f"[{card}] one bf16 decode step of the launcher's batch {B} "
+            f"under torch.profiler: wall {wall * 1e3:.2f} ms, {n_rec} device "
+            f"records ({', '.join(f'{k} {n}' for k, (n, _) in acts.items())}), "
+            f"device time {busy * 1e3:.3f} ms, busy {busy / wall:.2%}; bound "
+            f"{step_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({step_bytes / 1e9:.3f} GB: "
+            "the weights, the cache read and its state written)")
+
+        # ---- 3. the same weights in fp32, on the card and on the host
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            cfg32 = replace(cfg, dtype="float32")
+            p_host = build_params(cfg32, seed=0, device=host)
+            p_card = to_device(p_host, dev)
+            tokens = torch.from_numpy(out["tokens"])
+            lh, ch = serve_prefill(p_host, {"tokens": tokens}, cfg32,
+                                   max_seq=args.max_seq)
+            lc, cc = serve_prefill(p_card, {"tokens": tokens.to(dev)}, cfg32,
+                                   max_seq=args.max_seq)
+            errs = [rel_err(lc, lh)]
+            same = [bool(torch.equal(lc.argmax(-1).cpu(), lh.argmax(-1)))]
+            for _ in range(LM_FP32_DECODE):
+                tok = lh.argmax(-1)[:, None].to(torch.int32)  # the host's ids
+                lh, ch = serve_decode(p_host, ch, {"token": tok}, cfg32)
+                lc, cc = serve_decode(p_card, cc, {"token": tok.to(dev)}, cfg32)
+                errs.append(rel_err(lc, lh))
+                same.append(bool(torch.equal(lc.argmax(-1).cpu(), lh.argmax(-1))))
+            del p_host, ch, lh
+            card_vs_host = max(errs)
+            log("lm", f"[{card}] {LM_ARCH} fp32 at full width, card vs host (TF32 "
+                f"off) over the {tuple(tokens.shape)} prompt batch, prefill + "
+                f"{LM_FP32_DECODE} decode steps: max abs err / max |logit| "
+                f"{card_vs_host:.3e} (per call {', '.join(f'{e:.2e}' for e in errs)}; "
+                f"gate {LM_GATE}); greedy ids equal {same}; "
+                f"{time.perf_counter() - t0:.1f} s")
+            if card_vs_host > LM_GATE:
+                raise AssertionError(f"lm: fp32 card vs host {card_vs_host:.3e} > "
+                                     f"{LM_GATE}")
+
+            # ---- 4. prefill against decode, fp32 on the card
+            lc, cc = serve_prefill(p_card, {"tokens": tokens.to(dev)}, cfg32,
+                                   max_seq=args.max_seq)
+            gen = []
+            for _ in range(LM_FP32_DECODE):
+                tok = lc.argmax(-1)[:, None].to(torch.int32)
+                gen.append(tok)
+                lc, cc = serve_decode(p_card, cc, {"token": tok}, cfg32)
+            longer = torch.cat([tokens.to(dev)] + gen, dim=1)
+            lp, _ = serve_prefill(p_card, {"tokens": longer}, cfg32,
+                                  max_seq=args.max_seq)
+            pf_vs_dec = rel_err(lc, lp)
+            log("lm", f"[{card}] {LM_ARCH} fp32 on the card: prefill + "
+                f"{LM_FP32_DECODE} decode steps vs prefill of the "
+                f"{tuple(longer.shape)} prompt + generated ids, last position: "
+                f"max abs err / max |logit| {pf_vs_dec:.3e} (gate {LM_GATE}); greedy "
+                f"ids equal {bool(torch.equal(lc.argmax(-1), lp.argmax(-1)))}")
+            if pf_vs_dec > LM_GATE:
+                raise AssertionError(f"lm: prefill vs decode {pf_vs_dec:.3e} > "
+                                     f"{LM_GATE}")
+            del p_card, cc, lc, lp
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+    log("lm", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def cluster_probe() -> int:
     """``chip_smoke.py --cluster-probe``: what shard server processes on one
     card read, and where a call's time goes. Builds the 32 MiB store of the
@@ -3420,7 +3696,63 @@ def open_probe(path: str, kind: str) -> int:
     return 0
 
 
+def lm_probe(src: str) -> int:
+    """``chip_smoke.py --lm-probe SRC``: decode steps of the launcher's
+    mamba2-780m at full width in bf16 (seed 0, batch 5 of 10 random ids),
+    with ``repro_torch`` imported from SRC, a ``src`` directory, so that
+    two trees compare in one call, each in a fresh process. After prefill
+    and 2 unprofiled steps, ``LM_PROBE_STEPS`` steps are timed on the host
+    clock after a synchronise and one more runs under the profiler; print
+    the ms a step, the profiled step's wall, device ms and records, the
+    peak device memory over the timed steps above the weights and cache
+    before them, and the step's bound, as one JSON line."""
+    if not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.abspath(src))
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.models.model import build_params, serve_decode, serve_prefill
+
+    dev = torch.device("cuda")
+    cfg = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE)
+    params = build_params(cfg, seed=0, device=dev)
+    ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (5, 10))
+    with torch.inference_mode():
+        logits, cache = serve_prefill(
+            params, {"tokens": torch.from_numpy(ids.astype(np.int32)).to(dev)}, cfg)
+        for _ in range(2):
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            logits, cache = serve_decode(params, cache, {"token": tok}, cfg)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(LM_PROBE_STEPS):
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            logits, cache = serve_decode(params, cache, {"token": tok}, cfg)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / LM_PROBE_STEPS
+        extra = torch.cuda.max_memory_allocated() - base
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        (wall, acts), _, _ = device_window(
+            lambda: serve_decode(params, cache, {"token": tok}, cfg))
+    nbytes = lm_step_bytes(params, cache, cfg, ids.shape[0])
+    print(json.dumps({
+        "src": src, "step_ms": step_s * 1e3, "finite": bool(torch.isfinite(logits).all()),
+        "profiled_wall_ms": wall * 1e3,
+        "device_ms": sum(sec for _, sec in acts.values()) * 1e3,
+        "records": sum(n for n, _ in acts.values()),
+        "peak_extra_gib": extra / 2**30,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_gb": nbytes / 1e9}),
+        flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lm-probe"]:
+        sys.exit(lm_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--decode-all-probe"]:
         sys.exit(decode_all_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--open-probe"]:

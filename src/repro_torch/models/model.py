@@ -1,0 +1,103 @@
+"""Model entry points: family dispatch, loss, serve paths, parameters,
+caches and demo batches.
+
+Every entry point that makes tensors takes ``device=`` and defaults to the
+card (:func:`repro_torch.device.resolve_device`); the others run where their
+inputs lie.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import (decode_step, encoder_forward, forward,
+                                            init_cache, init_params, prefill,
+                                            torch_dtype)
+
+
+def get_memory(params, batch: dict, cfg: ArchConfig):
+    """Resolve the cross-attention memory for encdec/vlm families."""
+    if cfg.family == "encdec":
+        return encoder_forward(params, batch["enc_embed"], cfg)
+    if cfg.family == "vlm":
+        return batch["vision_embed"]
+    return None
+
+
+def model_forward(params, batch: dict, cfg: ArchConfig, remat: bool = True):
+    memory = get_memory(params, batch, cfg)
+    return forward(params, batch["tokens"], cfg, memory=memory, remat=remat)
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, remat: bool = True):
+    """Token-mean cross entropy in f32 (stable logsumexp); forward only."""
+    logits = model_forward(params, batch, cfg, remat=remat).float()
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    return (logz - gold).mean()
+
+
+def serve_prefill(params, batch: dict, cfg: ArchConfig, max_seq: int | None = None):
+    memory = get_memory(params, batch, cfg)
+    return prefill(params, batch["tokens"], cfg, memory=memory, max_seq=max_seq)
+
+
+def serve_decode(params, cache, batch: dict, cfg: ArchConfig):
+    return decode_step(params, cache, batch["token"], cfg)
+
+
+# ------------------------------------------------------------ concrete build
+def to_device(tree, device):
+    """A tree of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def build_params(cfg: ArchConfig, seed: int = 0, device="cuda"):
+    """Random parameters in ``cfg.dtype``, drawn on the CPU from a
+    ``torch.Generator`` seeded with ``seed`` and moved to ``device``: the
+    card and the host get the same weights for one seed, and a config in
+    bf16 gets the bf16 rounding of the fp32 config's weights. (The
+    reference draws from ``jax.random``, which torch cannot reproduce; to
+    compare the two, convert the reference's tree with
+    :func:`repro_torch.convert.params_from_reference`.)"""
+    dev = resolve_device(device)
+    key = torch.Generator(device="cpu").manual_seed(seed)
+    return to_device(init_params(key, cfg), dev)
+
+
+def build_cache(cfg: ArchConfig, batch: int, max_seq: int, device="cuda"):
+    return init_cache(cfg, batch, max_seq, device=resolve_device(device))
+
+
+def demo_batch(cfg: ArchConfig, batch: int, seq: int, kind: str = "train",
+               seed: int = 0, device="cuda") -> dict:
+    """Small concrete batch for smoke tests: the reference's numbers (numpy
+    ``default_rng(seed)``), as tensors on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    dt = torch_dtype(cfg.dtype)
+
+    def ints(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    if kind == "decode":
+        out["token"] = ints(rng.integers(0, cfg.vocab_size, (batch, 1)))
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (batch, seq + 1))
+        out["tokens"] = ints(toks[:, :-1])
+        if kind == "train":
+            out["targets"] = ints(toks[:, 1:])
+    if cfg.family == "encdec" and kind != "decode":
+        out["enc_embed"] = torch.from_numpy(
+            rng.normal(size=(batch, cfg.enc_seq, cfg.d_model))).to(dt).to(dev)
+    if cfg.family == "vlm" and kind != "decode":
+        out["vision_embed"] = torch.from_numpy(
+            rng.normal(size=(batch, cfg.n_vision_tokens, cfg.d_model))).to(dt).to(dev)
+    return out

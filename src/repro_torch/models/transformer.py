@@ -1,0 +1,364 @@
+"""Unified decoder stack for all 10 assigned architectures.
+
+The model is a loop over *blocks*; a block is the architecture's layer
+period (gemma2: [local, global]; jamba: [7x mamba + 1x attn, MoE every 2nd];
+llama-vision: [cross-attn + 4x self]; plain dense/MoE: 1 layer). Parameters
+and caches keep the reference's layout: every leaf under ``blocks`` has a
+leading block axis, and block ``i`` is ``{k: v[i]}``.
+
+Three entry points per architecture (built in repro_torch.models.model):
+  forward      — full-sequence logits
+  prefill      — forward + materialised KV/SSM caches, last-position logits
+  decode_step  — one token against the caches
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import (attention, decode_attention,
+                                       init_attention, init_mlp, init_moe, mlp,
+                                       moe, normal, rms_norm, rope, softcap)
+from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssd_apply, ssd_decode
+
+Params = dict[str, Any]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` name."""
+    return _DTYPES[name]
+
+
+def block_at(tree: Params, i: int) -> Params:
+    """Block ``i`` of a tree whose leaves carry a leading block axis."""
+    return {k: block_at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def stack_blocks(blocks: list[Params]) -> Params:
+    """The blocks' trees stacked along a new leading axis per leaf."""
+    return {k: stack_blocks([b[k] for b in blocks]) if isinstance(v, dict)
+            else torch.stack([b[k] for b in blocks])
+            for k, v in blocks[0].items()}
+
+
+# --------------------------------------------------------------- layer plan
+@dataclass(frozen=True)
+class SubLayer:
+    kind: str            # "attn" | "ssm" | "cross" | "attn_cross"
+    window: int | None   # sliding window for attn
+    use_moe: bool
+    cap: float | None    # attn logit softcap
+
+
+def block_plan(cfg: ArchConfig) -> list[SubLayer]:
+    """Static layer composition of one block (same for every block)."""
+    plan: list[SubLayer] = []
+    for i in range(cfg.layers_per_block):
+        use_moe = bool(cfg.n_experts) and (i % cfg.moe_every == cfg.moe_every - 1)
+        if cfg.family == "encdec":
+            # whisper decoder layer: self-attn + cross-attn + one MLP
+            plan.append(SubLayer("attn_cross", None, use_moe, None))
+        elif cfg.family == "ssm":
+            plan.append(SubLayer("ssm", None, False, None))
+        elif cfg.family == "hybrid":
+            is_attn = i == cfg.layers_per_block - 1
+            plan.append(SubLayer("attn" if is_attn else "ssm",
+                                 cfg.sliding_window, use_moe, None))
+        elif cfg.family == "vlm" and cfg.cross_attn_period and i == 0:
+            plan.append(SubLayer("cross", None, use_moe, None))
+        elif cfg.local_global_period:
+            local = i % cfg.local_global_period == 0
+            plan.append(SubLayer("attn",
+                                 cfg.sliding_window if local else None,
+                                 use_moe, cfg.attn_logit_softcap))
+        else:
+            plan.append(SubLayer("attn", cfg.sliding_window, use_moe,
+                                 cfg.attn_logit_softcap))
+    return plan
+
+
+# -------------------------------------------------------------------- init
+def _init_sublayer(key, sub: SubLayer, cfg: ArchConfig, dt) -> Params:
+    has_ffn = sub.use_moe or cfg.d_ff > 0
+    p: Params = {"norm1": torch.zeros((cfg.d_model,), dtype=dt)}
+    if has_ffn:
+        p["norm2"] = torch.zeros((cfg.d_model,), dtype=dt)
+    if sub.kind in ("attn", "cross", "attn_cross"):
+        p["attn"] = init_attention(key, cfg, dt)
+        if sub.kind == "cross":
+            # gated residual (llama-vision)
+            p["xgate"] = torch.zeros((), dtype=torch.float32)
+        if sub.kind == "attn_cross":
+            p["xattn"] = init_attention(key, cfg, dt)
+            p["norm1x"] = torch.zeros((cfg.d_model,), dtype=dt)
+    else:
+        p["ssm"] = init_ssm(key, cfg, dt)
+    if has_ffn:
+        p["ffn"] = init_moe(key, cfg, dt) if sub.use_moe else init_mlp(key, cfg, dt)
+    return p
+
+
+def init_block(key, cfg: ArchConfig, dt) -> Params:
+    return {f"l{i}": _init_sublayer(key, sub, cfg, dt)
+            for i, sub in enumerate(block_plan(cfg))}
+
+
+def _init_encoder_layer(key, cfg: ArchConfig, dt) -> Params:
+    return {"norm1": torch.zeros((cfg.d_model,), dtype=dt),
+            "norm2": torch.zeros((cfg.d_model,), dtype=dt),
+            "attn": init_attention(key, cfg, dt),
+            "ffn": init_mlp(key, cfg, dt)}
+
+
+def init_params(key, cfg: ArchConfig) -> Params:
+    """Random parameters on the CPU, drawn from ``key`` (a CPU
+    ``torch.Generator``) in a fixed order."""
+    dt = torch_dtype(cfg.dtype)
+    V, D = cfg.vocab_size, cfg.d_model
+    params: Params = {
+        "embed": normal(key, (V, D), dt, D ** -0.5),
+        "final_norm": torch.zeros((D,), dtype=dt),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(key, (D, V), dt, D ** -0.5)
+    params["blocks"] = stack_blocks([init_block(key, cfg, dt)
+                                     for _ in range(cfg.n_blocks)])
+    if cfg.enc_layers:
+        params["enc_blocks"] = stack_blocks([_init_encoder_layer(key, cfg, dt)
+                                             for _ in range(cfg.enc_layers)])
+        params["enc_norm"] = torch.zeros((D,), dtype=dt)
+    return params
+
+
+# ------------------------------------------------------------------ encoder
+def encoder_forward(params, enc_embed, cfg: ArchConfig):
+    """Whisper-style bidirectional encoder over stub frame embeddings."""
+    x = enc_embed
+    for i in range(cfg.enc_layers):
+        lp = block_at(params["enc_blocks"], i)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        x = x + attention(lp["attn"], h, h, cfg, causal=False, window=None,
+                          cap=None)
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + mlp(lp["ffn"], h)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+# ------------------------------------------------------------------ forward
+def _ffn(x, lp, sub: SubLayer, cfg: ArchConfig):
+    if "ffn" not in lp:
+        return x
+    h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + (moe(lp["ffn"], h, cfg) if sub.use_moe else mlp(lp["ffn"], h))
+
+
+def _gate(lp, x):
+    return torch.tanh(lp["xgate"]).to(x.dtype)
+
+
+def _apply_sublayer(x, lp, sub: SubLayer, cfg: ArchConfig, memory, q_offset=0):
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if sub.kind == "ssm":
+        x = x + ssd_apply(lp["ssm"], h, cfg)
+    elif sub.kind == "cross":
+        att = attention(lp["attn"], h, memory, cfg, causal=False, window=None,
+                        cap=None)
+        x = x + _gate(lp, x) * att
+    else:
+        x = x + attention(lp["attn"], h, h, cfg, causal=True,
+                          window=sub.window, cap=sub.cap, q_offset=q_offset)
+        if sub.kind == "attn_cross":
+            hx = rms_norm(x, lp["norm1x"], cfg.norm_eps)
+            x = x + attention(lp["xattn"], hx, memory, cfg, causal=False,
+                              window=None, cap=None)
+    return _ffn(x, lp, sub, cfg)
+
+
+def _logits(params, x, cfg: ArchConfig):
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return softcap(x @ head, cfg.final_logit_softcap)
+
+
+def forward(params, tokens, cfg: ArchConfig, memory=None, remat: bool = True):
+    """Full-sequence logits: tokens (B, S) int32 -> (B, S, V). ``remat`` is
+    the reference's rematerialisation switch; it changes nothing here."""
+    plan = block_plan(cfg)
+    x = params["embed"][tokens]
+    for b in range(cfg.n_blocks):
+        bp = block_at(params["blocks"], b)
+        for i, sub in enumerate(plan):
+            x = _apply_sublayer(x, bp[f"l{i}"], sub, cfg, memory)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x, cfg)
+
+
+# ------------------------------------------------------------------- caches
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, memory=None,
+               device=None) -> Params:
+    """Per-block decode caches. Attention sublayers get (B, S_cache, K, hd)
+    rings (S_cache = window if SWA else max_seq); SSM sublayers get O(1)
+    recurrent state; cross sublayers get zeros here (memory K/V are
+    computed from the stub embeddings at prefill and stored)."""
+    dt = torch_dtype(cfg.dtype)
+    plan = block_plan(cfg)
+    K, hd = cfg.n_kv_heads, cfg.hd
+    n = cfg.n_blocks
+
+    def zeros(*shape):
+        return torch.zeros((n, batch, *shape), dtype=dt, device=device)
+
+    cache: Params = {}
+    for i, sub in enumerate(plan):
+        if sub.kind == "ssm":
+            one = init_ssm_cache(cfg, batch, dt, device)
+            cache[f"l{i}"] = {k: v.expand(n, *v.shape).clone()
+                              for k, v in one.items()}
+        elif sub.kind == "cross":
+            S = max(1, cfg.n_vision_tokens)
+            cache[f"l{i}"] = {"k": zeros(S, K, hd), "v": zeros(S, K, hd)}
+        else:
+            S = min(sub.window, max_seq) if sub.window else max_seq
+            c = {"k": zeros(S, K, hd), "v": zeros(S, K, hd)}
+            if sub.kind == "attn_cross":
+                Se = max(1, cfg.enc_seq)
+                c["xk"] = zeros(Se, K, hd)
+                c["xv"] = zeros(Se, K, hd)
+            cache[f"l{i}"] = c
+    return {"blocks": cache,
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+# ------------------------------------------------------------------- decode
+def decode_step(params, cache, token, cfg: ArchConfig, memory=None):
+    """One decode step: token (B, 1) int32, cache from init_cache/prefill.
+
+    Returns (logits (B, V), cache). The blocks' caches are written in
+    place, one slot or state per sublayer through its view of the stacked
+    leaf, and the cache returned holds the same tensors with ``pos`` + 1;
+    clone the cache first to keep the one passed in."""
+    plan = block_plan(cfg)
+    pos = cache["pos"]
+    x = params["embed"][token]
+    for b in range(cfg.n_blocks):
+        bp = block_at(params["blocks"], b)
+        bc = block_at(cache["blocks"], b)
+        for i, sub in enumerate(plan):
+            lp, lc = bp[f"l{i}"], bc[f"l{i}"]
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if sub.kind == "ssm":
+                out, _ = ssd_decode(lp["ssm"], h, lc, cfg)
+                x = x + out
+            elif sub.kind == "cross":
+                att = _cross_decode(lp, h, lc, cfg)
+                x = x + _gate(lp, x) * att
+            else:
+                out, _, _ = decode_attention(lp["attn"], h, lc["k"], lc["v"],
+                                             pos, cfg, window=sub.window,
+                                             cap=sub.cap)
+                x = x + out
+                if sub.kind == "attn_cross":
+                    hx = rms_norm(x, lp["norm1x"], cfg.norm_eps)
+                    x = x + _cross_decode(
+                        {"attn": lp["xattn"]}, hx,
+                        {"k": lc["xk"], "v": lc["xv"]}, cfg)
+            x = _ffn(x, lp, sub, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x, cfg)[:, 0]
+    return logits, {"blocks": cache["blocks"], "pos": pos + 1}
+
+
+def _cross_decode(lp, h, lc, cfg):
+    """Cross-attention against cached memory K/V (decode path)."""
+    B = h.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (h @ lp["attn"]["wq"]).reshape(B, 1, H, hd)
+    rep = H // K
+    qh = q.reshape(B, K, rep, hd)
+    scores = torch.einsum("bkrh,bskh->bkrs", qh, lc["k"]).float()
+    probs = torch.softmax(scores * (hd ** -0.5), dim=-1).to(h.dtype)
+    out = torch.einsum("bkrs,bskh->bkrh", probs, lc["v"]).reshape(B, 1, H * hd)
+    return out @ lp["attn"]["wo"]
+
+
+# ------------------------------------------------------------------ prefill
+def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None):
+    """Process a prompt, returning (last-position logits, filled caches).
+
+    Caches are built by re-projecting K/V per block (the attention itself is
+    the chunked path from `forward`). SSM blocks return their final state.
+    The logits are those of position S-1 of every row, padding or not, as
+    in the reference.
+    """
+    B, S = tokens.shape
+    max_seq = max_seq or S
+    plan = block_plan(cfg)
+    x = params["embed"][tokens]
+    dt = torch_dtype(cfg.dtype)
+    K, hd = cfg.n_kv_heads, cfg.hd
+    caches = []
+    for b in range(cfg.n_blocks):
+        bp = block_at(params["blocks"], b)
+        cache: Params = {}
+        for i, sub in enumerate(plan):
+            lp = bp[f"l{i}"]
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if sub.kind == "ssm":
+                out, st = ssd_apply(lp["ssm"], h, cfg, return_state=True)
+                x = x + out
+                cache[f"l{i}"] = st
+            elif sub.kind == "cross":
+                att = attention(lp["attn"], h, memory, cfg, causal=False,
+                                window=None, cap=None)
+                x = x + _gate(lp, x) * att
+                Sm = memory.shape[1]
+                mk = memory @ lp["attn"]["wk"]
+                mv = memory @ lp["attn"]["wv"]
+                cache[f"l{i}"] = {"k": mk.reshape(B, Sm, K, hd).to(dt),
+                                  "v": mv.reshape(B, Sm, K, hd).to(dt)}
+            else:
+                x = x + attention(lp["attn"], h, h, cfg, causal=True,
+                                  window=sub.window, cap=sub.cap)
+                # re-project K/V into the ring cache layout
+                kf = h @ lp["attn"]["wk"]
+                vf = h @ lp["attn"]["wv"]
+                if cfg.qkv_bias:
+                    kf, vf = kf + lp["attn"]["bk"], vf + lp["attn"]["bv"]
+                kf = rope(kf.reshape(B, S, K, hd),
+                          torch.arange(S, dtype=torch.int32, device=x.device),
+                          cfg.rope_theta)
+                vf = vf.reshape(B, S, K, hd)
+                # a full-attention sublayer with S > max_seq takes the ring
+                # branch too (Sc = max_seq), as in the reference
+                Sc = min(sub.window, max_seq) if sub.window else max_seq
+                if Sc >= S:
+                    pad = (0, 0, 0, 0, 0, Sc - S)
+                    c = {"k": F.pad(kf, pad).to(dt),
+                         "v": F.pad(vf, pad).to(dt)}
+                else:  # SWA ring: keep the last window, rotated to slot order
+                    shift = S % Sc
+                    c = {"k": torch.roll(kf[:, -Sc:], shift, dims=1).to(dt),
+                         "v": torch.roll(vf[:, -Sc:], shift, dims=1).to(dt)}
+                if sub.kind == "attn_cross":
+                    hx = rms_norm(x, lp["norm1x"], cfg.norm_eps)
+                    x = x + attention(lp["xattn"], hx, memory, cfg,
+                                      causal=False, window=None, cap=None)
+                    Sm = memory.shape[1]
+                    xk = memory @ lp["xattn"]["wk"]
+                    xv = memory @ lp["xattn"]["wv"]
+                    c["xk"] = xk.reshape(B, Sm, K, hd).to(dt)
+                    c["xv"] = xv.reshape(B, Sm, K, hd).to(dt)
+                cache[f"l{i}"] = c
+            x = _ffn(x, lp, sub, cfg)
+        caches.append(cache)
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x, cfg)[:, 0]
+    return logits, {"blocks": stack_blocks(caches),
+                    "pos": torch.full((), S, dtype=torch.int32, device=x.device)}

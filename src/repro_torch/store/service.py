@@ -67,7 +67,11 @@ class StoreService:
         self.max_wait_cap_s = float(max_wait_cap_s)
         self.wait_adjustments = 0   # times the controller moved max_wait_s
         self._adapt_win: list[float] = []  # latencies since the last adapt
-        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        # queue.Queue, not SimpleQueue: on CPython 3.12 a SimpleQueue's
+        # get(timeout=t) can block forever when t runs out between its
+        # deadline's set-up and its first lock acquire, and with it every
+        # request of the batch being collected (_collect_batch)
+        self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._submit_lock = threading.Lock()  # orders submit() vs close()
         # per-service histogram (stats() stays instance-scoped), registered

@@ -28,6 +28,21 @@ CLIENT_MODULES = ("repro_torch.client", "repro_torch.client.session",
                   "repro_torch.loadgen.driver", "repro_torch.loadgen.slo",
                   "repro_torch.loadgen.cluster", "repro_torch.launch",
                   "repro_torch.launch.serve")
+#: the LM substrate: configs, models and the tokenizer, scanned like every
+#: module (``models/config.py`` and ``configs/`` are the port's own copies)
+LM_MODULES = ("repro_torch.models", "repro_torch.models.config",
+              "repro_torch.models.layers", "repro_torch.models.ssm",
+              "repro_torch.models.transformer", "repro_torch.models.model",
+              "repro_torch.configs", "repro_torch.configs.gemma2_2b",
+              "repro_torch.configs.h2o_danube_1p8b",
+              "repro_torch.configs.jamba_1p5_large",
+              "repro_torch.configs.llama32_vision_90b",
+              "repro_torch.configs.mamba2_780m",
+              "repro_torch.configs.mixtral_8x22b",
+              "repro_torch.configs.qwen1p5_4b",
+              "repro_torch.configs.qwen3_moe_30b_a3b",
+              "repro_torch.configs.whisper_medium", "repro_torch.configs.yi_9b",
+              "repro_torch.core.tokenizer", "repro_torch.convert")
 
 
 def _forbidden(module: str) -> bool:
@@ -53,14 +68,14 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         " ('jax', 'jaxlib', 'repro'))\n"
         "wire = sorted(set(WIRE) - set(names))\n"
         "print(len(names), bad, wire)\n").replace(
-            "WIRE", repr(WIRE_MODULES + CLIENT_MODULES))
+            "WIRE", repr(WIRE_MODULES + CLIENT_MODULES + LM_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad, missing = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 20  # every module was imported
     assert bad == "[]"
-    assert missing == "[]"  # the wire's and the clients' modules among them
+    assert missing == "[]"  # the wire's, the clients' and the LM's among them
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
@@ -91,6 +106,11 @@ def test_wire_modules_are_scanned(module):
 
 @pytest.mark.parametrize("module", CLIENT_MODULES)
 def test_client_modules_are_scanned(module):
+    assert _module_path(module) in set(PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", LM_MODULES)
+def test_lm_modules_are_scanned(module):
     assert _module_path(module) in set(PKG.rglob("*.py"))
 
 

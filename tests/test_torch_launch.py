@@ -1,16 +1,20 @@
 """The port's attach and launch command lines: ``python -m
-repro_torch.loadgen --url`` and ``python -m repro_torch.launch.serve
---shard-server``, held against the JAX package's.
+repro_torch.loadgen --url`` and ``python -m repro_torch.launch.serve``,
+held against the JAX package's.
 
 Covered: ``--url`` attaches to a running cluster with no spawn of its own
 and collects the servers' histograms by scrape, printing a report with the
 reference CLI's keys; a directory URL takes ``--device`` and without a card
 needs ``--device cpu``; the launcher's ``--shard-server`` child prints
 ``SHARD_SERVER_READY`` and serves a multiget equal to the reference
-server's over the same shard; without a card and without ``--device cpu``
-it exits non-zero with the device's message; and it requires
-``--shard-server`` (its LM role is not ported yet). Every child's
-readiness line is read with a deadline, and every child is reaped."""
+server's over the same shard; its LM role on the host (``--smoke --device
+cpu``) prints the reference launcher's lines for ``--prompts``, serves
+``--doc-ids`` from the in-process store (the reference corpus's strings)
+and from stores the reference saved (``--store-dir``, ``--writable
+--append``, the appends readable by the reference afterwards); without a
+card and without ``--device cpu`` either role exits non-zero with the
+device's message. Every child's readiness line is read with a deadline,
+and every child is reaped."""
 
 import json
 import os
@@ -26,6 +30,10 @@ import torch
 import repro.loadgen as ref_lg
 import repro.net as ref_net
 from repro.core import registry
+from repro.core.tokenizer import OnPairTokenizer as RefTokenizer
+from repro.data.synth import load_dataset as ref_load_dataset
+from repro.store import CompressedStringStore as RefStore
+from repro.store import MutableStringStore as RefMutable
 from repro.loadgen import driver as ref_driver
 from repro.obs import Histogram as RefHistogram
 from repro_torch.client import connect
@@ -173,16 +181,131 @@ def test_launcher_shard_server_serves_the_reference_bytes(sharded_dir, titles):
 
 
 def test_launcher_refuses_without_a_card_or_a_shard(sharded_dir):
+    """Without a card and without ``--device cpu`` both roles exit non-zero
+    with the device's message (the LM role is the default now that
+    ``--shard-server`` is optional); ``--help`` names the LM flags; and
+    ``--shard-server`` still starts on the host."""
     shard = os.path.join(sharded_dir, "shard-0000")
     proc = _launch(["--shard-server", shard, "--port", "0"], env=NO_CARD_ENV)
     out, err = proc.communicate(timeout=120)
     assert proc.returncode != 0
     assert "CUDA is not available" in err
     assert "SHARD_SERVER_READY" not in out
-    proc = _launch(["--port", "0"])
+    proc = _launch(["--smoke", "--doc-ids", "3"], env=NO_CARD_ENV)
     out, err = proc.communicate(timeout=120)
-    assert proc.returncode == 2  # argparse: --shard-server is required
-    assert "--shard-server" in err
+    assert proc.returncode != 0
+    assert "CUDA is not available" in err
+    assert "prefill:" not in out and "store:" not in out
     proc = _launch(["--help"])
     out, _ = proc.communicate(timeout=120)
-    assert proc.returncode == 0 and "LM substrate" in out
+    assert proc.returncode == 0
+    for flag in ("--arch", "--smoke", "--prompts", "--doc-ids", "--store-dir",
+                 "--writable", "--append", "--max-new", "--max-seq",
+                 "--metrics-port", "--device", "--shard-server"):
+        assert flag in out, flag
+    proc = _launch(["--shard-server", shard, "--port", "0", "--device", "cpu"],
+                   env=NO_CARD_ENV)
+    try:
+        line = _ready_line(proc)
+        assert line.startswith("SHARD_SERVER_READY port="), (line, _stop(proc))
+    finally:
+        _stop(proc)
+
+
+# ------------------------------------------------------------ LM launcher
+LM_RUN_S = 300.0  # one LM launch's time limit here
+
+
+def _lm(args, env=CHILD_ENV):
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--smoke", "--device", "cpu", *args],
+                          capture_output=True, text=True, env=env,
+                          timeout=LM_RUN_S)
+
+
+def _prompt_lines(stdout: str) -> list[str]:
+    return [ln for ln in stdout.splitlines() if ln.startswith("  ")]
+
+
+@pytest.fixture(scope="module")
+def ref_corpus():
+    """The reference launcher's in-process corpus: 1 MiB of book titles."""
+    return ref_load_dataset("book_titles", 1 << 20)
+
+
+def test_lm_prompts_print_the_reference_lines(ref_corpus):
+    proc = _lm(["--prompts", "the quick", "compression", "--max-new", "3"])
+    assert proc.returncode == 0, proc.stderr
+    tok = RefTokenizer.train(ref_corpus, sample_bytes=1 << 20)
+    ids = tok.encode_batch([b"the quick", b"compression"], bos=True)
+    L = max(map(len, ids))
+    lines = proc.stdout.splitlines()
+    assert re.fullmatch(rf"prefill: \(2, {L}\) in \d+\.\d\ds", lines[0]), lines
+    assert re.fullmatch(r"decode: 6 tokens in \d+\.\d\ds \(\d+\.\d tok/s, "
+                        r"untrained weights\)", lines[1]), lines
+    prompts = _prompt_lines(proc.stdout)
+    assert len(prompts) == 2
+    assert prompts[0].startswith("  'the quick' -> b'the quick")
+    assert prompts[1].startswith("  'compression' -> b'compression")
+
+
+def test_lm_doc_ids_from_the_in_process_store(ref_corpus):
+    ids = [3, 17, 4242]
+    proc = _lm(["--doc-ids", *map(str, ids), "--max-new", "2"])
+    assert proc.returncode == 0, proc.stderr
+    n = len(ref_corpus)
+    m = re.search(rf"store: {n} docs in {-(-n // 4096)} segments \(cpu backend\), "
+                  r"fetched 3 prompts, jit shapes \[.*\]", proc.stdout)
+    assert m, proc.stdout
+    assert "prefill: (5, " in proc.stdout
+    prompts = _prompt_lines(proc.stdout)
+    assert len(prompts) == 5
+    for line, i in zip(prompts[2:], ids):
+        want = ref_corpus[i]
+        assert line.startswith(f"  {want.decode('latin-1')!r} -> "), (line, want)
+        assert f"-> {want!r}"[:-1] in line
+
+
+@pytest.fixture(scope="module")
+def ref_saved_stores(titles, tmp_path_factory):
+    """A read-only and a writable store saved by the reference (numpy
+    backend), over the module's titles."""
+    art = registry.train("onpair16", titles, sample_bytes=SAMPLE)
+    corpus = registry.codec_from_artifact(art).compress(titles)
+    root = tmp_path_factory.mktemp("torch-launch-lm")
+    flat, mut = str(root / "flat"), str(root / "mut")
+    RefStore(art, corpus, backend="numpy", strings_per_segment=256).save(flat)
+    RefMutable(art, corpus, backend="numpy", strings_per_segment=256).save(mut)
+    return flat, mut
+
+
+def test_lm_store_dir_serves_the_reference_store(ref_saved_stores, titles):
+    flat, mut = ref_saved_stores
+    proc = _lm(["--store-dir", flat, "--doc-ids", "0", "7", "--max-new", "2"])
+    assert proc.returncode == 0, proc.stderr
+    n = len(titles)
+    assert f"store: {n} docs in {-(-n // 256)} segments (cpu backend), fetched 2 " \
+        "prompts" in proc.stdout
+    want = RefStore.open(flat, backend="numpy").multiget([0, 7])
+    prompts = _prompt_lines(proc.stdout)[2:]
+    assert [ln.split(" -> ")[0] for ln in prompts] == \
+        [f"  {w.decode('latin-1')!r}" for w in want]
+    # --append needs --writable, with the reference's message
+    proc = _lm(["--store-dir", flat, "--append", "x"])
+    assert proc.returncode != 0
+    assert "--append requires --store-dir with --writable" in proc.stderr
+    # a writable store: appended, saved, served, and readable by the reference
+    docs = ["a new doc", "another new doc"]
+    proc = _lm(["--store-dir", mut, "--writable", "--append", *docs,
+                "--doc-ids", "1", "--max-new", "2"])
+    assert proc.returncode == 0, proc.stderr
+    m = re.search(rf"appended 2 docs \(ids {n}\.\.{n + 1}\), tail \d+ strings, "
+                  rf"saved to {re.escape(mut)}, drift \d+\.\d{{3}} "
+                  r"\(compact recommended: (True|False)\)", proc.stdout)
+    assert m, proc.stdout
+    assert "fetched 3 prompts" in proc.stdout
+    prompts = [ln.split(" -> ")[0] for ln in _prompt_lines(proc.stdout)[2:]]
+    assert prompts == [f"  {titles[1].decode('latin-1')!r}"] + \
+        [f"  {d!r}" for d in docs]
+    back = RefMutable.open(mut, backend="numpy")
+    assert back.multiget([n, n + 1]) == [d.encode() for d in docs]

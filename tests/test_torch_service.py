@@ -24,6 +24,7 @@ import sys
 import threading
 import time
 import traceback
+from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeout
 
 import numpy as np
@@ -48,6 +49,9 @@ SAMPLE = 1 << 18
 SPS = 256  # small segments so appends cross seal boundaries quickly
 CPU = torch.device("cpu")
 JOIN_S = 60.0  # every thread a case starts is joined within this and dead
+#: timed waits on a fresh queue: a SimpleQueue on CPython 3.12 blocks for
+#: good within about 10^3-10^4 of them at waits of 1-10 us
+COLLECTS = 50_000
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -356,6 +360,27 @@ def test_service_close_during_inflight_batch_does_not_hang(titles, port_art,
     late = svc.submit(6)                # after close: failed, never pending
     with pytest.raises(RuntimeError):
         late.result(1)
+
+
+def test_collect_batch_ends_when_its_wait_runs_out_before_the_lock(
+        titles, port_art, ref_art):
+    """The worker's timed wait for more requests ends even when it runs out
+    before the queue's lock is first taken. A fresh queue (lock free,
+    nothing queued) under a wait of microseconds is that case: on CPython
+    3.12 ``queue.SimpleQueue.get(timeout=t)`` then blocks forever, and the
+    requests of the batch being collected wait with it."""
+    port, _ = _pair(port_art, ref_art, titles[:64])
+    svc = StoreService(port, max_wait_s=2e-5)
+    svc.close()  # the worker is joined: _collect_batch runs on this thread
+    sizes: list[int] = []
+
+    def collect():
+        for _ in range(COLLECTS):
+            svc._q = type(svc._q)()
+            sizes.append(len(svc._collect_batch(("get", 0, Future(), 0.0, None))))
+
+    _run_threads([(collect, ())])
+    assert sizes == [1] * COLLECTS
 
 
 def test_service_failed_batch_fails_its_futures_and_keeps_serving(
