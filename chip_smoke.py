@@ -109,7 +109,22 @@ after:
    prefill against decode on the card, each within 1e-3 of the largest
    logit; one more bf16 decode step of the launcher's run under the
    profiler, beside its bound. ``--lm-probe SRC`` times that step alone
-   with ``repro_torch`` imported from SRC (two trees in one call).
+   with ``repro_torch`` imported from SRC (two trees in one call);
+12. the LM training path (``repro_torch.launch.train``): every architecture
+   at its smoke config in fp32 (TF32 off), a step on the card against the
+   same state on the host (the loss, every gradient, the updated parameters
+   and both moments within 1e-4 of each leaf's largest value; q8 moments
+   within one quantum; 2 microbatches), then a bf16 step on the card,
+   finite; the launcher in child processes on the card: 9 steps with a
+   checkpoint at step 6, then 9 resumed from step 6 (its step-6 loss equal
+   to the uninterrupted run's, the later ones within 1e-2), a child sent
+   SIGTERM saving and exiting 0, the card's checkpoint
+   restored on the host to equal leaves; mamba2-780m at full width in bf16
+   through ``train_lm`` (batch 8 x seq 256, 8 steps, nothing saved): the
+   step's wall, tokens/s and peak device memory, and one more step under
+   the profiler beside its bound; the same weights in fp32, card against
+   host, loss and gradients within 1e-3. No kernel of the port is on this
+   path.
 
 Every string each path returns is checked against its source, each path's
 encode launches are recomputed from the bucketed encode's chunking (per
@@ -168,9 +183,10 @@ STRINGS_PER_SEGMENT = 4096
 PARITY_STRINGS = 4096
 ENCODE_WINDOW = 1 << 16  # strings appended under the profiler
 MULTIGET_WINDOW = 200  # 1024-id batches read under the profiler
-LOCATE_HITS = 50_000  # sampled source strings located on the opened store
+LOCATE_HITS = 20_000  # sampled source strings located on the opened store (50,000 before the train phase)
 LOCATE_MISSES = 10_000  # absent strings (a source string and one more byte)
-PREFIXES = 10  # scan_prefix prefixes of 1-8 bytes, three paginated to the end
+PREFIXES = 10  # scan_prefix prefixes of 1-8 bytes
+PAGED_PREFIXES = 1  # of them, paginated to the end (3 before the train phase)
 PREFIX_LIMIT = 100
 WRITABLE_STRINGS = 1 << 18  # the persist phase's writable store, before extend
 WRITABLE_EXTEND = 5_000  # strings appended before the save and after the open
@@ -182,23 +198,23 @@ SERVE_COLD = [1, 10, 20, 48]  # each shard's local segment demoted (mod its coun
 SERVE_EXTEND = 5_000  # strings appended to the tail shard and through the service
 SERVE_CLIENTS = 8  # threads of service get() calls
 SERVE_MULTIGET_CLIENTS = 4  # threads of 1,024-id service multiget requests
-SERVE_GET_IDS = 40_000  # shuffled ids the get() threads share
+SERVE_GET_IDS = 20_000  # shuffled ids the get() threads share (40,000 before the train phase)
 WINDOW_TRIES = 3  # profiled runs of a window until one sees every launch
 CODEC_DATA_BYTES = 2 << 20  # the host codecs' corpus: their parse runs in Python
 #: training samples of the host codecs (BPE and FSST train in Python loops)
 CODEC_SAMPLES = {"onpair": 1 << 19, "onpair16": 1 << 19, "bpe": 1 << 17,
                  "fsst": 1 << 17}
 CODEC_ACCESS = 1_000  # seeded random access calls per codec
-CODEC_APPENDS = 10_000  # strings appended to the writable unbounded-OnPair store
-WIRE_GET_IDS = 8_000  # shuffled ids the wire phase's get() threads share
+CODEC_APPENDS = 5_000  # strings appended to the writable unbounded-OnPair store (10,000 before the train phase)
+WIRE_GET_IDS = 4_000  # shuffled ids the wire phase's get() threads share (8,000 before the train phase)
 WIRE_LOCATE_HITS = 10_000  # of the persist phase's hits, located over the wire
 WIRE_LOCATE_MISSES = 1_000  # of its misses, located first (every index builds)
 WIRE_PREFIXES = 3  # of its prefixes, the three with the fewest probes
 WIRE_READY_S = 120.0  # deadline for the subprocess server's readiness line
-CLIENT_GET_IDS = 10_000  # shuffled ids the client phase's get_async threads share
+CLIENT_GET_IDS = 5_000  # shuffled ids the client phase's get_async threads share (10,000 before the train phase)
 CLIENT_APPENDS = 5_000  # strings of 1-32 B appended through the client
-LOADGEN_S = 5.0  # seconds of each loadgen loop (closed, then open at half its rate)
-CLI_S = 3.0  # seconds of the loadgen CLI's run against the cluster
+LOADGEN_S = 3.0  # seconds of each loadgen loop, closed then open at half its rate (5 before the train phase)
+CLI_S = 2.0  # seconds of the loadgen CLI's run against the cluster (3 before the train phase)
 PROBE_CALLS = 200  # 1,024-id calls a layout of --cluster-probe reads
 LM_ARCH = "mamba2-780m"  # the launcher's default architecture, at full width
 LM_DOC_IDS = [3, 17, 4242]  # prompts fetched from the launcher's store
@@ -210,6 +226,18 @@ LM_FP32_DECODE = 4  # decode steps of the full-width fp32 comparisons
 LM_GATE = 1e-3  # max abs logit error / max |logit| at full width in fp32
 LM_PROBE_STEPS = 32  # timed decode steps of --lm-probe, after 2 untimed
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16, NVIDIA's data sheet
+TRAIN_TOL = 1e-4  # smoke configs card vs host, of each leaf's largest |value|
+TRAIN_MB_RTOL = 1e-3  # a step of 2 microbatches against one batch, loss
+TRAIN_RESUME_RTOL = 1e-6  # a resumed run's first loss against the uninterrupted run's
+TRAIN_LATER_RTOL = 1e-2  # its later bf16 losses against the uninterrupted run's
+TRAIN_STEP0 = 50  # the smoke states' step: the schedule's factor is 0 at step 0
+TRAIN_STEPS = 8  # full-width steps; the step's wall is the median of steps 2-8
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_GATE = 1e-3  # full width fp32 card vs host, of each leaf's largest |value|
+TRAIN_CHILD_S = 300.0  # deadline of each launcher child
+TRAIN_CHILD_ARGS = ["--smoke", "--batch", "2", "--seq", "32", "--data-mib", "1"]
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
 
@@ -374,6 +402,33 @@ def lm_step_bytes(params: dict, cache: dict, cfg, batch: int) -> int:
             elif sub.kind != "cross" and k in ("k", "v"):
                 total += nbytes(v) // v.shape[2]  # one slot written
     return total
+
+
+def train_step_bound(state: dict, cfg, n_tokens: int) -> tuple[float, str, float, int]:
+    """The least time one train step of ``state`` over ``n_tokens`` tokens
+    could take: the larger of its operations over the bf16 dense peak and
+    its bytes over HBM's rate. Operations: 6 a parameter a token (the
+    forward and backward of every weight; the embedding counts only as the
+    tied head's matmul, the lookup as nothing). Bytes: each parameter read
+    twice (forward, backward), its gradient written and read once, the
+    parameter written once, both moments read and written once (AdamW);
+    activations count nothing, since what they cost depends on the
+    implementation. Returns (ms, "operations" or "bytes", operations,
+    bytes)."""
+    from repro_torch.tree import leaves
+
+    params = leaves(state["params"])
+    n_embed = state["params"]["embed"].numel()
+    n_matmul = sum(p.numel() for p in params) - n_embed
+    if cfg.tie_embeddings:
+        n_matmul += n_embed
+    flops = 6.0 * n_matmul * n_tokens
+    nbytes = sum(6 * p.numel() * p.element_size() for p in params)
+    nbytes += sum(2 * t.numel() * t.element_size()
+                  for t in leaves({"m": state["opt"]["m"], "v": state["opt"]["v"]}))
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops, nbytes
 
 
 def encode_launch_shapes(strings: list[bytes], caps0, pad_batch: int,
@@ -934,10 +989,10 @@ def main() -> int:
             if prefix_call(p) != expected[p][:PREFIX_LIMIT]:
                 raise AssertionError(f"scan_prefix({p!r}) differs from a sorted "
                                      "filter of the source strings")
-        # pages to the end for the three prefixes with the fewest matches
-        # past one page (each page probes every segment)
+        # pages to the end for the prefixes with the fewest matches past one
+        # page (each page probes every segment)
         paged = sorted(prefixes, key=lambda p: (len(expected[p]) <= PREFIX_LIMIT,
-                                                len(expected[p])))[:3]
+                                                len(expected[p])))[:PAGED_PREFIXES]
         n_pages = 0
         for p in paged:
             pages, after = [], None
@@ -2382,7 +2437,12 @@ def main() -> int:
     # --------------------------------------------------------------- 9. LM
     # the launcher's LM role: prompts fetched through the decode kernel from
     # a store built on the encode kernel, prefill and decode on the card
-    lm_phase(card, dev, counts)
+    lm_host = lm_phase(card, dev, counts)
+    # -------------------------------------------------------------- 10. train
+    # the training launcher: the smoke configs' steps card against host,
+    # resume and preemption in child processes, mamba2-780m at full width
+    train_phase(card, dev, counts, lm_host)
+    del lm_host
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
@@ -3328,7 +3388,7 @@ def client_phase(card: str, dev: torch.device, strings: list[bytes], store, batc
         f"wall {wall:.1f} s")
 
 
-def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> None:
+def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> dict:
     """The LM serving path (``repro_torch.launch.serve``'s LM role): every
     architecture at its smoke config in fp32 on the card against the same
     weights on the host (TF32 off), then bf16 on the card; mamba2-780m at
@@ -3337,7 +3397,8 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> None:
     kernel), in bf16; the same weights in fp32 on the card and on the host
     over its prompt batch; and prefill against decode at full width on the
     card; one more bf16 step of the launcher's weights and cache under the
-    profiler, beside its bound. Every check raises."""
+    profiler, beside its bound. Every check raises. Returns the host's fp32
+    draw of the full-width weights, for the train phase."""
     from dataclasses import replace
 
     from repro_torch.configs import REGISTRY
@@ -3501,7 +3562,7 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> None:
                 lc, cc = serve_decode(p_card, cc, {"token": tok.to(dev)}, cfg32)
                 errs.append(rel_err(lc, lh))
                 same.append(bool(torch.equal(lc.argmax(-1).cpu(), lh.argmax(-1))))
-            del p_host, ch, lh
+            del ch, lh
             card_vs_host = max(errs)
             log("lm", f"[{card}] {LM_ARCH} fp32 at full width, card vs host (TF32 "
                 f"off) over the {tuple(tokens.shape)} prompt batch, prefill + "
@@ -3538,6 +3599,424 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> None:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         torch.cuda.empty_cache()
     log("lm", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
+    return p_host
+
+
+def train_phase(card: str, dev: torch.device, counts: PathCounts,
+                lm_host: dict | None = None) -> None:
+    """The LM training path (``python -m repro_torch.launch.train``).
+
+    (a) Every architecture at its smoke config in fp32 (TF32 off), from a
+    state at step ``TRAIN_STEP0``: the loss and every gradient leaf, then
+    one ``make_train_step`` step (the loss, the parameters, both moments),
+    on the card against the same state on the host within ``TRAIN_TOL`` of
+    each leaf's largest value; one step with q8 moments (``q`` within one
+    quantum); one of 2 microbatches on the card (its loss within
+    ``TRAIN_MB_RTOL`` of one batch's); one bf16 step on the card, finite.
+    (b) The launcher in child processes on the card at smoke width: 9 steps
+    with one checkpoint, at step 6, then 9 on the same directory (resumed
+    from 6, 3 steps; its step-6 loss within ``TRAIN_RESUME_RTOL`` of the
+    first, uninterrupted run's, which came from the state the checkpoint
+    holds; the later ones within ``TRAIN_LATER_RTOL``); a child
+    sent SIGTERM after step 10 saves and exits 0; a checkpoint written on
+    the card restores on the host to equal leaves.
+    (c) mamba2-780m at full width in bf16 through ``train_lm`` (batch
+    ``TRAIN_BATCH`` x seq ``TRAIN_SEQ``, ``TRAIN_STEPS`` steps, nothing
+    saved): every loss finite; the step's wall (median of steps 2-8),
+    tokens/s and peak device memory; one more step under the profiler,
+    beside its bound (:func:`train_step_bound`).
+    (d) The same config in fp32, batch 1 x seq 32, card against host: the
+    loss and every gradient leaf within ``TRAIN_GATE`` of the leaf's
+    largest value (``lm_host``: the lm phase's host draw of the weights).
+    (d) runs while the children of (b) do; (c) after they have exited.
+    No kernel of the port is on this path: the counts must stay 0. Every
+    check raises."""
+    import signal
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.launch.train import build_parser, train_lm
+    from repro_torch.models.model import build_params, demo_batch, to_device
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.state import make_abstract_state, make_state
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    t_phase = time.perf_counter()
+    host = torch.device("cpu")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    children: list[subprocess.Popen] = []
+
+    def tree_err(got, want, what: str, tol: float) -> float:
+        """Max over the leaves of max |got - want| / max |want|; raise past
+        ``tol``. q8 ``q`` leaves may differ by one quantum."""
+        g, w = dict(leaves_with_paths(got)), dict(leaves_with_paths(want))
+        if g.keys() != w.keys():
+            raise AssertionError(f"train {what}: the trees' keys differ")
+        worst = 0.0
+        for k in w:
+            a = g[k]
+            b = w[k].to(a.device)  # compared where ``got`` lies, in fp32
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"train {what} {k}: {tuple(a.shape)} {a.dtype} "
+                                     f"against {tuple(b.shape)} {b.dtype}")
+            if k.endswith("/q"):
+                if (a.int() - b.int()).abs().max() > 1:
+                    raise AssertionError(f"train {what} {k}: q8 more than one "
+                                         "quantum apart")
+                continue
+            a, b = a.float(), b.float()
+            err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            if not err <= tol:  # NaN fails too
+                raise AssertionError(f"train {what} {k}: {err:.3e} of the leaf's "
+                                     f"largest value > {tol}")
+            worst = max(worst, err)
+        return worst
+
+    def first_step(grads, opt) -> dict:
+        """Adam's first step direction from ``grads`` (fp64, by path): with
+        zero moments m^ = g and v^ = g^2 after the clip, so the step is
+        g / (|g| + eps)."""
+        flat = dict(leaves_with_paths(grads))
+        norm = sum(float(g.double().square().sum()) for g in flat.values()) ** 0.5
+        clip = min(1.0, opt.grad_clip / (norm + 1e-9))
+        return {k: (g.cpu().double() * clip) / ((g.cpu().double() * clip).abs()
+                                                + opt.eps) for k, g in flat.items()}
+
+    def params_err(got, want, step_c: dict, step_h: dict, lr: float,
+                   what: str) -> tuple[float, int]:
+        """Updated parameters, card against host: within ``TRAIN_TOL`` of the
+        leaf's largest value beyond what the two sides' first steps, each
+        from its own gradients, set apart (lr |step_c - step_h|). Near
+        |g| = eps a step moves by about a quarter for a gradient change of
+        eps, so gradients equal within ``TRAIN_TOL`` may still step apart
+        there. Returns the worst error beyond that and the count of entries
+        where the steps' difference exceeds ``TRAIN_TOL`` of the leaf."""
+        g, w = dict(leaves_with_paths(got)), dict(leaves_with_paths(want))
+        worst, apart = 0.0, 0
+        for k in w:
+            a, b = g[k].cpu().double(), w[k].cpu().double()
+            scale = max(float(b.abs().max()), 1e-30)
+            allowed = lr * (step_c[k] - step_h[k]).abs() * (1 + 1e-6)
+            err = float(((a - b).abs() - allowed).max()) / scale
+            if not err <= TRAIN_TOL:
+                raise AssertionError(f"train {what} {k}: {err:.3e} of the leaf's "
+                                     f"largest value > {TRAIN_TOL} beyond the "
+                                     "steps' own difference")
+            worst = max(worst, err)
+            apart += int((allowed > TRAIN_TOL * scale).sum())
+        return worst, apart
+
+    def finite_tree(what: str, tree) -> None:
+        bad = [k for k, t in leaves_with_paths(tree)
+               if t.is_floating_point() and not bool(torch.isfinite(t.float()).all())]
+        if bad:
+            raise AssertionError(f"train {what}: not finite in {bad[:3]}")
+
+    def start(name: str, extra: list[str], ckpt_dir: str | None = None
+              ) -> subprocess.Popen:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CHILD_ARGS,
+             "--ckpt-dir", os.path.join(tmp, ckpt_dir or name),
+             "--stats-json", os.path.join(tmp, f"{name}.json"), *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        children.append(proc)
+        return proc
+
+    def finish(name: str, proc: subprocess.Popen) -> dict:
+        out, err = proc.communicate(timeout=TRAIN_CHILD_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"train child {name} exited {proc.returncode}: "
+                                 f"{err[-2000:]}")
+        with open(os.path.join(tmp, f"{name}.json")) as f:
+            return {"stdout": out, **json.load(f)}
+
+    try:
+        # ---- (b) children first: they train their tokenizers on the host
+        # while (a) and (d) run; the full-width run (c) waits for all of them
+        # 9 uninterrupted steps with one checkpoint, at step 6: the resumed
+        # run restores it, and its losses must be this run's
+        first = start("a", ["--steps", "9", "--ckpt-every", "6"])
+        term = start("t", ["--steps", "100000", "--ckpt-every", "100000"])
+        term_lines: list[str] = []
+
+        def watch_term() -> None:
+            # SIGTERM once the child has logged its 10th step
+            for line in term.stdout:
+                term_lines.append(line)
+                if line.startswith("step 10:"):
+                    term.send_signal(signal.SIGTERM)
+
+        watcher = threading.Thread(target=watch_term, daemon=True)
+        watcher.start()
+        chained: dict = {}
+
+        def chain() -> None:
+            # the resumed run starts as soon as the first one has saved
+            try:
+                chained["a"] = finish("a", first)
+                chained["b"] = finish("b", start("b", ["--steps", "9", "--ckpt-every",
+                                                       "3"], "a"))
+            except Exception as exc:  # re-raised on the main thread
+                chained["error"] = exc
+
+        chainer = threading.Thread(target=chain, daemon=True)
+        chainer.start()
+
+        # ---- (a) every architecture at its smoke config, card against host
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        worst: dict[str, float] = {}
+        apart: dict[str, int] = {}  # entries whose two first steps differ visibly
+        last_bf16 = None
+        for name in sorted(REGISTRY):
+            cfg = replace(REGISTRY[name].smoke(), dtype="float32")
+            base = build_params(cfg, seed=0, device=host)
+            batch = demo_batch(cfg, 2, 32, kind="train", device=host)
+            card_batch = to_device(batch, dev)
+
+            def fresh(opt, where):
+                p = to_device(tree_map(torch.clone, base), where)
+                return {"params": p, "opt": init_state(p, opt),
+                        "step": torch.tensor(TRAIN_STEP0, dtype=torch.int32,
+                                             device=where)}
+
+            lh, gh = loss_and_grads(base, batch, cfg)
+            lc, gc = loss_and_grads(to_device(base, dev), card_batch, cfg)
+            errs = [abs(float(lc) - float(lh)) / abs(float(lh)),
+                    tree_err(gc, gh, f"{name} grads", TRAIN_TOL)]
+            steps = (first_step(gc, AdamWConfig()), first_step(gh, AdamWConfig()))
+            if errs[0] > TRAIN_TOL:
+                raise AssertionError(f"train {name}: loss {float(lc)} on the card, "
+                                     f"{float(lh)} on the host")
+            for quant in (False, True):
+                opt = AdamWConfig(quantized_moments=quant)
+                sh, mh = make_train_step(cfg, opt)(fresh(opt, host), batch)
+                sc, mc = make_train_step(cfg, opt)(fresh(opt, dev), card_batch)
+                p_err, n_apart = params_err(sc["params"], sh["params"], steps[0],
+                                            steps[1], opt.lr * float(mh["lr_scale"]),
+                                            f"{name} q8={quant} params")
+                errs += [p_err, tree_err(sc["opt"], sh["opt"],
+                                         f"{name} q8={quant} moments", TRAIN_TOL)]
+                apart[name] = apart.get(name, 0) + n_apart
+                if abs(float(mc["loss"]) - float(mh["loss"])) > \
+                        TRAIN_TOL * abs(float(mh["loss"])):
+                    raise AssertionError(f"train {name} q8={quant}: step loss "
+                                         f"{float(mc['loss'])} against {float(mh['loss'])}")
+                if int(sc["step"]) != TRAIN_STEP0 + 1 or int(sc["opt"]["count"]) != 1:
+                    raise AssertionError(f"train {name}: step or count not advanced")
+                if not quant:
+                    one = float(mc["loss"])
+            # 2 microbatches: card against host, and against one batch where
+            # no MoE capacity (set by the tokens a call sees) drops differently
+            opt = AdamWConfig()
+            s2h, m2h = make_train_step(cfg, opt, microbatches=2)(fresh(opt, host), batch)
+            s2c, m2c = make_train_step(cfg, opt, microbatches=2)(fresh(opt, dev),
+                                                                 card_batch)
+            errs.append(tree_err(s2c["opt"], s2h["opt"], f"{name} 2 microbatches' "
+                                 "moments", TRAIN_TOL))
+            mb = float(m2c["loss"])
+            if abs(mb - float(m2h["loss"])) > TRAIN_TOL * abs(mb) or (
+                    not cfg.n_experts and abs(mb - one) > TRAIN_MB_RTOL * abs(one)):
+                raise AssertionError(f"train {name}: 2 microbatches' loss {mb} on "
+                                     f"the card, {float(m2h['loss'])} on the host, "
+                                     f"one batch's {one}")
+            worst[name] = max(errs)
+            # bf16 on the card: a step from step TRAIN_STEP0, finite
+            cfg16 = REGISTRY[name].smoke()
+            s16 = make_state(cfg16, opt, seed=0, device=dev)
+            s16["step"].fill_(TRAIN_STEP0)
+            s16, m16 = make_train_step(cfg16, opt)(s16, demo_batch(cfg16, 2, 32,
+                                                                   device=dev))
+            if not np.isfinite(float(m16["loss"])):
+                raise AssertionError(f"train {name} bf16: loss {float(m16['loss'])}")
+            finite_tree(f"{name} bf16 state", s16)
+            last_bf16 = s16
+        torch.cuda.synchronize()
+        log("train", f"[{card}] {len(worst)} smoke configs in fp32 (TF32 off), a "
+            f"step from step {TRAIN_STEP0} on the card == the host within "
+            f"{TRAIN_TOL} of each leaf's largest value: the loss, every gradient, "
+            "the updated parameters and both moments (plain and q8, q within one "
+            "quantum), and of 2 microbatches, whose loss is within "
+            f"{TRAIN_MB_RTOL} of one batch's but with MoE; worst error per arch: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + "; parameter entries whose first steps, each from its side's "
+            f"gradients, differ by more than {TRAIN_TOL} of the leaf (|g| near "
+            "eps; plain + q8 steps): " + ", ".join(f"{k} {v}" for k, v in apart.items())
+            + f"; bf16 on the card finite; {time.perf_counter() - t0:.1f} s")
+
+        # a checkpoint written from the card restores on the host to equal leaves
+        d = ckpt.save(last_bf16, 1, os.path.join(tmp, "card"))
+        back, _ = ckpt.restore(os.path.dirname(d), tree_map(
+            lambda t: torch.empty_like(t, device="meta"), last_bf16), device=host)
+        for (k, a), (_, b) in zip(leaves_with_paths(back), leaves_with_paths(last_bf16)):
+            if a.device.type != "cpu" or not torch.equal(a, b.cpu()):
+                raise AssertionError(f"train checkpoint {k}: the host's restore "
+                                     "differs from the card's state")
+        del last_bf16, back
+
+        # ---- (d) full width in fp32, card against host, while the children
+        # of (b) run (nothing here is timed)
+        t0 = time.perf_counter()
+        cfg32 = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE, dtype="float32")
+        # the lm phase drew its weights under inference_mode: a clone outside
+        # it is an ordinary tensor, which autograd may take
+        p_host = tree_map(torch.clone, lm_host) if lm_host is not None else \
+            build_params(cfg32, seed=0, device=host)
+        batch = demo_batch(cfg32, 1, 32, kind="train", device=host)
+        t1 = time.perf_counter()
+        lh, gh = loss_and_grads(p_host, batch, cfg32)
+        t2 = time.perf_counter()
+        lc, gc = loss_and_grads(to_device(p_host, dev), to_device(batch, dev), cfg32)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        loss_err = abs(float(lc) - float(lh)) / abs(float(lh))
+        grad_err = tree_err(gc, gh, f"{LM_ARCH} fp32 grads", TRAIN_GATE)
+        split = (f"weights {t1 - t0:.1f} s, host gradients {t2 - t1:.1f} s, the "
+                 f"card's (with the copy) {t3 - t2:.1f} s, the comparison "
+                 f"{time.perf_counter() - t3:.1f} s")
+        if loss_err > TRAIN_GATE:
+            raise AssertionError(f"train: full-width fp32 loss {float(lc)} on the "
+                                 f"card, {float(lh)} on the host")
+        del gh, gc, p_host
+        log("train", f"[{card}] {LM_ARCH} fp32 at full width, batch 1 x seq 32, card "
+            f"vs host (TF32 off): loss {float(lc):.6f} vs {float(lh):.6f} (relative "
+            f"{loss_err:.2e}); gradients, max abs err / the leaf's max |value| "
+            f"{grad_err:.3e} (gate {TRAIN_GATE}); {time.perf_counter() - t0:.1f} s "
+            f"({split})")
+        # ---- (b) resume and preemption through the launcher's children
+        t0 = time.perf_counter()
+        chainer.join(timeout=2 * TRAIN_CHILD_S)
+        if chainer.is_alive() or "error" in chained:
+            raise AssertionError(f"train resume children: {chained.get('error')!r}")
+        a, resumed = chained["a"], chained["b"]
+        rc_t = term.wait(timeout=TRAIN_CHILD_S)
+        watcher.join(timeout=30)
+        t_err = term.stderr.read()
+        if rc_t != 0 or watcher.is_alive():
+            raise AssertionError(f"train SIGTERM child exited {rc_t}: {t_err[-2000:]}")
+        saved = [ln for ln in term_lines if ln.startswith("[preempt] saved step ")]
+        if len(saved) != 1:
+            raise AssertionError(f"train SIGTERM child: {len(saved)} preempt lines")
+        t_step = int(saved[0].split()[3])
+        if t_step < 10 or ckpt.latest_step(os.path.join(tmp, "t")) != t_step:
+            raise AssertionError(f"train SIGTERM child: saved step {t_step}, latest "
+                                 f"{ckpt.latest_step(os.path.join(tmp, 't'))}")
+        if a["steps_run"] != 9 or resumed["resumed_from"] != 6 \
+                or resumed["steps_run"] != 3:
+            raise AssertionError(f"train resume: steps {a['steps_run']}, then "
+                                 f"{resumed['steps_run']} resumed from "
+                                 f"{resumed['resumed_from']}")
+        if "resumed_from=6" not in resumed["stdout"]:
+            raise AssertionError("train resume: the done line lacks resumed_from=6")
+        # step 6 is restored state and a batch that is a function of the
+        # step: the same loss; the later steps follow their own backwards
+        rel = [abs(g - w) / abs(w) for g, w in zip(resumed["losses"], a["losses"][6:])]
+        if rel[0] > TRAIN_RESUME_RTOL or max(rel) > TRAIN_LATER_RTOL:
+            raise AssertionError(f"train resume: losses {resumed['losses']} against "
+                                 f"the uninterrupted run's {a['losses'][6:]}")
+        cfg_s = replace(REGISTRY[LM_ARCH].smoke(), vocab_size=VOCAB_SIZE)
+        abstract = make_abstract_state(cfg_s, AdamWConfig())
+        on_host, s_h = ckpt.restore(os.path.join(tmp, "a"), abstract, device=host)
+        on_card, s_c = ckpt.restore(os.path.join(tmp, "a"), abstract, device=dev)
+        if not s_h == s_c == 9 or not all(torch.equal(x, y.cpu()) for x, y in zip(
+                leaves(on_host), leaves(on_card))):
+            raise AssertionError("train: the card's checkpoint restores differently "
+                                 "on the host and on the card")
+        del on_host, on_card
+        log("train", f"[{card}] launcher children on the card ({' '.join(TRAIN_CHILD_ARGS)}): "
+            f"9 steps with a checkpoint at step 6, then 9 on its directory, resumed "
+            f"from {resumed['resumed_from']} ({resumed['steps_run']} steps; losses "
+            f"{resumed['losses']} against the uninterrupted run's {a['losses'][6:]}: "
+            f"relative {', '.join(f'{x:.2e}' for x in rel)}); "
+            "SIGTERM after step 10: saved step "
+            f"{t_step}, exit 0; the step-9 checkpoint restores on the host == on the "
+            f"card; a bf16 card state saved and restored on the host == its leaves; "
+            f"{time.perf_counter() - t0:.1f} s after (a)")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+        # ---- (c) mamba2-780m at full width through the launcher, bf16
+        args = build_parser().parse_args(
+            ["--arch", LM_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every",
+             str(TRAIN_STEPS + 1), "--ckpt-dir", os.path.join(tmp, "full")])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts.start()
+        t0 = time.perf_counter()
+        out = train_lm(args, dev, install_signals=False)
+        run_s = time.perf_counter() - t0
+        counts.end("train", [])  # no kernel of the port on this path
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        cfg, stats = out["cfg"], out["loop"].stats
+        if cfg != replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE):
+            raise AssertionError(f"train: not {LM_ARCH} at full width: {cfg}")
+        if stats.steps_run != TRAIN_STEPS or not np.all(np.isfinite(stats.losses)):
+            raise AssertionError(f"train: {stats.steps_run} steps, losses {stats.losses}")
+        if ckpt.latest_step(args.ckpt_dir) is not None:
+            raise AssertionError("train: the full-width run saved a checkpoint")
+        step_s = float(np.median(stats.step_times[1:]))
+        tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+        state = out["loop"].state
+        finite_tree("full-width state", state["params"])
+        log("train", f"[{card}] {LM_ARCH} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, ssm_state {cfg.ssm_state}, vocab {cfg.vocab_size}, "
+            f"{cfg.n_params() / 1e6:.2f} M parameters, {cfg.dtype}) through "
+            f"train_lm, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}: losses "
+            f"{', '.join(f'{x:.4f}' for x in stats.losses)}; step wall (median of "
+            f"steps 2-{TRAIN_STEPS}) {step_s * 1e3:.2f} ms, {tok_s:.1f} tokens/s "
+            f"(steps {', '.join(f'{x * 1e3:.1f}' for x in stats.step_times)} ms); "
+            f"peak device memory {peak / 2**30:.3f} GiB above the {base_mem / 2**30:.3f} "
+            f"GiB held before; train_lm {run_s:.1f} s in all (tokenizer, weights)")
+        batch = out["batch_fn"](TRAIN_STEPS)
+        (wall, acts), _, _ = device_window(lambda: out["step_fn"](state, batch))
+        bound_ms, bound_by, flops, nbytes = train_step_bound(
+            state, cfg, TRAIN_BATCH * TRAIN_SEQ)
+        n_rec = sum(n for n, _ in acts.values())
+        busy = sum(sec for _, sec in acts.values())
+        log("train", f"[{card}] one more bf16 step under torch.profiler: wall "
+            f"{wall * 1e3:.2f} ms, {n_rec} device records ({', '.join(f'{k} {n}' for k, (n, _) in acts.items())}), "
+            f"device time {busy * 1e3:.3f} ms, busy {busy / wall:.2%}; bound "
+            f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e12:.3f} TFLOP at "
+            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s: {flops / BF16_FLOPS_PER_S * 1e3:.3f} ms; "
+            f"{nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+        # where its device time goes: one more step, kernels by device time
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out["step_fn"](state, batch)
+            torch.cuda.synchronize()
+        by_kernel = sorted(((e.key, e.device_time_total, e.count)
+                            for e in prof.key_averages() if e.device_time_total > 0),
+                           key=lambda r: -r[1])
+        total_us = sum(t for _, t, _ in by_kernel)
+        log("train", f"[{card}] that step's device time by kernel, {total_us / 1e3:.3f} "
+            "ms in all; the eight largest: " + "; ".join(
+                f"{name[:70]} {t / 1e3:.3f} ms ({n} calls)"
+                for name, t, n in by_kernel[:8]))
+        del out, state, batch
+        torch.cuda.empty_cache()
+
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        for proc in children:
+            if proc.poll() is None:
+                proc.kill()
+            try:
+                proc.communicate(timeout=30)
+            except ValueError:  # its pipes were read and closed by a thread
+                proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log("train", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
 
 
 def cluster_probe() -> int:

@@ -1,6 +1,6 @@
 """Carry state across from the JAX reference into the port, as plain numpy
-arrays: a trained dictionary, an encoded corpus, and an LM's parameter and
-cache trees.
+arrays: a trained dictionary, an encoded corpus, and an LM's parameter,
+cache and train-state trees.
 
 The caller reads the arrays off the reference's objects (this module never
 imports them): the fields of its ``PackedDictionary`` named in
@@ -55,7 +55,7 @@ def _leaf_from_reference(a, device: torch.device) -> torch.Tensor:
         # bf16 as its bit pattern: numpy has no bf16 of its own
         bits = np.ascontiguousarray(a).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    if a.dtype not in (np.float32, np.int32):
+    if a.dtype not in (np.float32, np.int32, np.int8):
         raise ValueError(f"unexpected leaf dtype {a.dtype}")
     return torch.from_numpy(np.array(a)).to(device)
 
@@ -92,4 +92,13 @@ def cache_from_reference(tree: dict, device: str | torch.device = "cuda") -> dic
     ``prefill``'s): ``{"blocks": ..., "pos": int32 scalar}`` with the same
     keys, shapes and dtypes; bf16 leaves as in
     :func:`params_from_reference`."""
+    return _tree_from_reference(tree, device)
+
+
+def state_from_reference(tree: dict, device: str | torch.device = "cuda") -> dict:
+    """The port's train state from a reference train state (``{"params",
+    "opt": {"m", "v", "count"}, "step"}``): parameters as in
+    :func:`params_from_reference`, both moments in fp32 or as q8 blocks
+    (``{"q": int8, "scale": fp32}``), and the int32 ``count`` and
+    ``step``, with the same keys, shapes and dtypes."""
     return _tree_from_reference(tree, device)

@@ -1,1 +1,3 @@
-"""Seeded synthetic analogues of the paper's datasets."""
+"""The LM's data plane: seeded synthetic analogues of the paper's datasets
+(``synth``), the OnPair-compressed corpus store (``corpus``) and the
+deterministic token batch pipeline over it (``pipeline``)."""

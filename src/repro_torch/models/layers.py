@@ -46,10 +46,14 @@ def batch_axes(mesh=None) -> tuple:
 
 
 # ------------------------------------------------------------------ random
-def normal(key: torch.Generator, shape, dtype: torch.dtype,
+def normal(key: torch.Generator | None, shape, dtype: torch.dtype,
            scale: float = 1.0) -> torch.Tensor:
     """Standard normal draws from ``key`` (a CPU generator) in fp32, scaled,
-    then cast to ``dtype``."""
+    then cast to ``dtype``; with no key, an empty tensor of that shape and
+    dtype on the default device (``meta`` for :func:`abstract_params
+    <repro_torch.models.transformer.abstract_params>`)."""
+    if key is None:
+        return torch.empty(shape, dtype=dtype)
     return torch.randn(shape, generator=key, dtype=torch.float32).mul_(
         scale).to(dtype)
 

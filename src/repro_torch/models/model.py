@@ -33,7 +33,10 @@ def model_forward(params, batch: dict, cfg: ArchConfig, remat: bool = True):
 
 
 def loss_fn(params, batch: dict, cfg: ArchConfig, remat: bool = True):
-    """Token-mean cross entropy in f32 (stable logsumexp); forward only."""
+    """Token-mean cross entropy in f32 (stable logsumexp). Differentiable:
+    :mod:`repro_torch.train.train_step` takes its gradients with
+    ``torch.autograd.grad``; ``remat`` as in :func:`forward
+    <repro_torch.models.transformer.forward>`."""
     logits = model_forward(params, batch, cfg, remat=remat).float()
     targets = batch["targets"].long()
     logz = torch.logsumexp(logits, dim=-1)

@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (attention, decode_attention,
@@ -40,6 +41,18 @@ def block_at(tree: Params, i: int) -> Params:
     """Block ``i`` of a tree whose leaves carry a leading block axis."""
     return {k: block_at(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def unstack_blocks(tree: Params) -> list[Params]:
+    """The blocks of a tree whose leaves carry a leading block axis, as
+    views: one ``unbind`` a leaf. Under autograd the blocks' gradients then
+    reach each stacked leaf in one stack, where a ``block_at`` view per
+    block would add a zero-filled gradient of the whole stacked leaf per
+    block (n^2 in the leaf's size)."""
+    cols = {k: unstack_blocks(v) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    n = len(next(iter(cols.values())))
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 def stack_blocks(blocks: list[Params]) -> Params:
@@ -138,17 +151,37 @@ def init_params(key, cfg: ArchConfig) -> Params:
     return params
 
 
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree's shapes and dtypes as ``meta`` tensors (nothing
+    is drawn or allocated)."""
+    with torch.device("meta"):
+        return init_params(None, cfg)
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``) when
+    gradients are being recorded."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # ------------------------------------------------------------------ encoder
 def encoder_forward(params, enc_embed, cfg: ArchConfig):
-    """Whisper-style bidirectional encoder over stub frame embeddings."""
-    x = enc_embed
-    for i in range(cfg.enc_layers):
-        lp = block_at(params["enc_blocks"], i)
+    """Whisper-style bidirectional encoder over stub frame embeddings. Each
+    layer is rematerialised under autograd, as the reference's always is."""
+
+    def layer(x, lp):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         x = x + attention(lp["attn"], h, h, cfg, causal=False, window=None,
                           cap=None)
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + mlp(lp["ffn"], h)
+        return x + mlp(lp["ffn"], h)
+
+    x = enc_embed
+    for lp in unstack_blocks(params["enc_blocks"]):
+        x = _remat(layer, x, lp)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -188,14 +221,21 @@ def _logits(params, x, cfg: ArchConfig):
 
 
 def forward(params, tokens, cfg: ArchConfig, memory=None, remat: bool = True):
-    """Full-sequence logits: tokens (B, S) int32 -> (B, S, V). ``remat`` is
-    the reference's rematerialisation switch; it changes nothing here."""
+    """Full-sequence logits: tokens (B, S) int32 -> (B, S, V). With
+    ``remat`` each block keeps only its input for the backward pass and
+    recomputes the rest (the reference's ``jax.checkpoint`` of the block);
+    the values are the same either way. Gradients reach the stacked leaves
+    through each block's views (:func:`unstack_blocks`)."""
     plan = block_plan(cfg)
-    x = params["embed"][tokens]
-    for b in range(cfg.n_blocks):
-        bp = block_at(params["blocks"], b)
+
+    def block(x, bp):
         for i, sub in enumerate(plan):
             x = _apply_sublayer(x, bp[f"l{i}"], sub, cfg, memory)
+        return x
+
+    x = params["embed"][tokens]
+    for bp in unstack_blocks(params["blocks"]):
+        x = _remat(block, x, bp) if remat else block(x, bp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg)
 

@@ -2,10 +2,13 @@
 re-run on the port for every architecture they cover, on the port's own
 random parameters in the configs' bf16 on the CPU: forward shapes and
 finiteness, one decode step against a fresh cache (a prefilled one for
-whisper), prefill against forward's last position. The gradient step waits
-for the port's training slice. Also the parameter tree's layout against the
-reference's, ``build_params``' seeding, and the bf16 conversion of a
-reference tree."""
+whisper), prefill against forward's last position, and the gradient step
+(``tests/test_arch_smoke.py:42``: loss and every gradient leaf finite, the
+embedding's gradient nonzero). Also the loss and gradients of a MoE config
+in fp32 against the reference's ``jax.value_and_grad`` on converted
+parameters (1e-4 of each leaf's largest absolute value), the parameter
+tree's layout against the reference's, ``build_params``' seeding, and the
+bf16 conversion of a reference tree."""
 
 from dataclasses import replace
 
@@ -20,7 +23,9 @@ from repro_torch.configs import REGISTRY
 from repro_torch.convert import params_from_reference
 from repro_torch.models.model import (build_cache, build_params, demo_batch,
                                       model_forward, serve_decode, serve_prefill)
-from repro_torch.models.transformer import block_at
+from repro_torch.models.transformer import abstract_params, block_at
+from repro_torch.train.train_step import loss_and_grads
+from repro_torch.tree import leaves, leaves_with_paths
 
 ARCHS = sorted(REGISTRY)
 CPU = "cpu"
@@ -61,6 +66,43 @@ def test_forward_shapes_and_finite(smoke_state, name):
     assert logits.shape == (2, 32, cfg.vocab_size)
     assert logits.dtype == torch.bfloat16
     assert _finite(logits)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_train_grad_step(smoke_state, name):
+    cfg, params = smoke_state(name)
+    batch = demo_batch(cfg, batch=2, seq=32, kind="train", device=CPU)
+    loss, grads = loss_and_grads(params, batch, cfg)
+    assert _finite(loss)
+    flat = leaves(grads)
+    assert flat and all(_finite(g) for g in flat)
+    assert [g.dtype for g in flat] == [p.dtype for p in leaves(params)]
+    # embeddings must receive gradient
+    assert float(grads["embed"].float().abs().sum()) > 0
+
+
+def test_moe_loss_and_grads_are_the_reference():
+    """MoE's scatter of tokens into expert buffers carries gradients: the
+    loss and every gradient leaf of qwen3-moe's smoke config in fp32 equal
+    the reference's ``jax.value_and_grad(loss_fn)`` within 1e-4 of each
+    leaf's largest absolute value."""
+    cfg = replace(REGISTRY["qwen3-moe-30b-a3b"].smoke(), dtype="float32")
+    ref = R.build_params(cfg, seed=1)
+    port = params_from_reference(jax.tree_util.tree_map(np.asarray, ref),
+                                 device=CPU)
+    batch = R.demo_batch(cfg, batch=2, seq=32, kind="train", seed=2)
+    want_loss, want = jax.value_and_grad(R.loss_fn)(ref, batch, cfg)
+    loss, grads = loss_and_grads(
+        port, {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}, cfg)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-4)
+    got, want = dict(leaves_with_paths(grads)), dict(leaves_with_paths(
+        jax.tree_util.tree_map(np.asarray, want)))
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        bound = 1e-4 * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0, atol=bound,
+                                   err_msg=k)
+    assert float(np.abs(want["blocks/l0/ffn/w_gate"]).max()) > 0
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -111,6 +153,9 @@ def test_parameter_tree_is_the_reference_layout(smoke_state, name):
         lambda: R.build_cache(cfg, batch=2, max_seq=24)))
     assert block_at(params["blocks"], cfg.n_blocks - 1).keys() == \
         params["blocks"].keys()
+    abstract = abstract_params(cfg)
+    assert _layout(abstract) == _layout(ref)
+    assert {p.device.type for p in leaves(abstract)} == {"meta"}
 
 
 def test_build_params_is_seeded_and_bf16_rounds_fp32():

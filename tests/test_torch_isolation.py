@@ -43,6 +43,15 @@ LM_MODULES = ("repro_torch.models", "repro_torch.models.config",
               "repro_torch.configs.qwen3_moe_30b_a3b",
               "repro_torch.configs.whisper_medium", "repro_torch.configs.yi_9b",
               "repro_torch.core.tokenizer", "repro_torch.convert")
+#: the training path: optimizer, state and step, checkpoints, the loop, the
+#: data plane and the launcher (``launch.train`` runs nothing when imported)
+TRAIN_MODULES = ("repro_torch.tree", "repro_torch.optim",
+                 "repro_torch.optim.adamw", "repro_torch.train",
+                 "repro_torch.train.state", "repro_torch.train.train_step",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.runtime", "repro_torch.runtime.loop",
+                 "repro_torch.data", "repro_torch.data.corpus",
+                 "repro_torch.data.pipeline", "repro_torch.launch.train")
 
 
 def _forbidden(module: str) -> bool:
@@ -68,14 +77,15 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         " ('jax', 'jaxlib', 'repro'))\n"
         "wire = sorted(set(WIRE) - set(names))\n"
         "print(len(names), bad, wire)\n").replace(
-            "WIRE", repr(WIRE_MODULES + CLIENT_MODULES + LM_MODULES))
+            "WIRE", repr(WIRE_MODULES + CLIENT_MODULES + LM_MODULES
+                         + TRAIN_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad, missing = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 20  # every module was imported
     assert bad == "[]"
-    assert missing == "[]"  # the wire's, the clients' and the LM's among them
+    assert missing == "[]"  # the wire's, the clients', the LM's and training's
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
@@ -114,9 +124,14 @@ def test_lm_modules_are_scanned(module):
     assert _module_path(module) in set(PKG.rglob("*.py"))
 
 
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_train_modules_are_scanned(module):
+    assert _module_path(module) in set(PKG.rglob("*.py"))
+
+
 @pytest.mark.parametrize("module", [m for m in WIRE_MODULES + CLIENT_MODULES
-                                    if m.endswith("__main__")
-                                    or m == "repro_torch.launch.serve"])
+                                    + TRAIN_MODULES if m.endswith("__main__")
+                                    or m.startswith("repro_torch.launch.")])
 def test_entry_modules_run_nothing_when_imported(module):
     tree = ast.parse(_module_path(module).read_text())
     top = [n for n in tree.body if not isinstance(

@@ -204,7 +204,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, ref_comp,
 
 def test_decode_counter_and_spans_reach_obs(port_store, titles):
     """A traced multiget records store.decode -> kernel.decode_batch, and the
-    registry exports the decode counter by path, as the reference names them."""
+    registry exports the decode counter by path, as the reference names them.
+    The tracer is cleared first: ``trace_dump`` keeps the slowest traces of
+    the process, which slower traces of earlier tests could fill."""
+    TRACER.clear()
     with TRACER.span("client.multiget", root=True) as ctx:
         assert port_store.multiget([5, 6]) == titles[5:7]
     trace = next(t for t in TRACER.trace_dump(64) if t["trace_id"] == ctx.trace_id)
