@@ -238,6 +238,9 @@ TRAIN_SEQ = 256
 TRAIN_GATE = 1e-3  # full width fp32 card vs host, of each leaf's largest |value|
 TRAIN_CHILD_S = 300.0  # deadline of each launcher child
 TRAIN_CHILD_ARGS = ["--smoke", "--batch", "2", "--seq", "32", "--data-mib", "1"]
+DIST_STEPS = 4  # full-width steps of train_lm --mesh 1,1, held to the train phase's first ones
+DIST_COMPRESS_CALLS = 3  # timed compressed_pmean calls over the full-width gradient tree
+DIST_SAMPLE_LEAVES = 3  # of its leaves, compressed again on gloo on the host
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
 
@@ -546,6 +549,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     card = smi.splitlines()[0]
+    # the dry-run of the train phase's full-width step, traced on the host
+    # in a child while the early phases run (its counts are of shapes)
+    dry = start_dryrun_probe()
     # ---------------------------------------------------------------- 1. env
     log("env", f"python {sys.version.split()[0]}; torch {torch.__version__}; "
         f"cuda {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
@@ -2441,8 +2447,12 @@ def main() -> int:
     # -------------------------------------------------------------- 10. train
     # the training launcher: the smoke configs' steps card against host,
     # resume and preemption in child processes, mamba2-780m at full width
-    train_phase(card, dev, counts, lm_host)
+    trained = train_phase(card, dev, counts, lm_host, dry)
     del lm_host
+    # --------------------------------------------------------------- 11. dist
+    # the distributed layer: a one-rank NCCL group, compressed_pmean over the
+    # full-width gradients, train_lm --mesh 1,1, a checkpoint on the mesh
+    dist_phase(card, dev, counts, trained)
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
@@ -3603,7 +3613,8 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> dict:
 
 
 def train_phase(card: str, dev: torch.device, counts: PathCounts,
-                lm_host: dict | None = None) -> None:
+                lm_host: dict | None = None,
+                dry: subprocess.Popen | None = None) -> dict:
     """The LM training path (``python -m repro_torch.launch.train``).
 
     (a) Every architecture at its smoke config in fp32 (TF32 off), from a
@@ -3629,8 +3640,11 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
     loss and every gradient leaf within ``TRAIN_GATE`` of the leaf's
     largest value (``lm_host``: the lm phase's host draw of the weights).
     (d) runs while the children of (b) do; (c) after they have exited.
-    No kernel of the port is on this path: the counts must stay 0. Every
-    check raises."""
+    The dry-run of (c)'s step (``dry``, the ``--dryrun-probe`` child on the
+    host, started here if not before) prints its roofline terms beside the
+    bound. No kernel of the port is on
+    this path: the counts must stay 0. Every check raises. Returns (c)'s
+    losses and step wall."""
     import signal
     from dataclasses import replace
 
@@ -3736,6 +3750,9 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
             return {"stdout": out, **json.load(f)}
 
     try:
+        if dry is None:
+            dry = start_dryrun_probe()
+        children.append(dry)
         # ---- (b) children first: they train their tokenizers on the host
         # while (a) and (d) run; the full-width run (c) waits for all of them
         # 9 uninterrupted steps with one checkpoint, at step 6: the resumed
@@ -3988,6 +4005,22 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
             f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s: {flops / BF16_FLOPS_PER_S * 1e3:.3f} ms; "
             f"{nbytes / 1e9:.3f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+        d_out, d_err = dry.communicate(timeout=TRAIN_CHILD_S)
+        if dry.returncode != 0:
+            raise AssertionError(f"train: the dry-run child exited {dry.returncode}: "
+                                 f"{d_err[-2000:]}")
+        d = json.loads(d_out.strip().splitlines()[-1])
+        log("train", f"[{card}] the dry-run of the same step (repro_torch.launch.dryrun, "
+            f"traced on meta tensors on the host, one rank of a (1, 1) mesh; counts, "
+            f"not times): t_compute_s {d['t_compute_s'] * 1e3:.3f} ms ({d['flops'] / 1e12:.3f} "
+            f"TFLOP of matmuls: the forward, remat's recompute and the backward) against "
+            f"train_step_bound's {flops / BF16_FLOPS_PER_S * 1e3:.3f} ms by operations; "
+            f"t_memory_s {d['t_memory_s'] * 1e3:.3f} ms ({d['bytes_accessed'] / 1e9:.3f} GB: "
+            f"{d['ops']} eager ops' operands and results, views free, and "
+            f"{d['argument_size_in_bytes'] / 1e9:.3f} GB of arguments) against its "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms by bytes; collectives "
+            f"{d['collective_calls']} ({d['collective_bytes_total']} B); traced in "
+            f"{d['trace_s']:.1f} s")
         # where its device time goes: one more step, kernels by device time
         from torch.profiler import ProfilerActivity, profile
 
@@ -4004,7 +4037,7 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
                 for name, t, n in by_kernel[:8]))
         del out, state, batch
         torch.cuda.empty_cache()
-
+        return {"losses": list(stats.losses), "step_s": step_s}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         for proc in children:
@@ -4016,7 +4049,226 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
                 proc.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
-    log("train", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
+        log("train", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict) -> None:
+    """The distributed layer (``repro_torch.distributed``, ``launch.mesh``,
+    ``train.mesh_step``) on a one-rank NCCL process group of the card
+    (``tcp://localhost`` at a free port; no gloo fallback):
+
+    (a) ``train_lm --mesh 1,1``: mamba2-780m at full width in bf16, batch
+    ``TRAIN_BATCH`` x seq ``TRAIN_SEQ``, from the train phase's seed, its
+    state placed as DTensors by ``state_shardings``: its first loss equal to
+    the train phase's unsharded run's, the later ones within
+    ``TRAIN_LATER_RTOL`` (``DIST_STEPS`` steps), its step wall beside the
+    train phase's;
+    (b) ``compressed_pmean`` over the ``"pod"`` dim of a (1,) mesh, on the
+    gradient tree of one more batch of that state (803.35 M entries, bf16):
+    the time a call (``DIST_COMPRESS_CALLS``, after one counted call) and
+    the bytes it puts on the wire (the collective counter);
+    (c) a smoke-width state trained one step at (1, 1) on the card, saved
+    (every leaf gathered, rank 0 writes) and restored with ``shardings=``:
+    equal leaves, DTensors again;
+    then, the NCCL group destroyed, (d) ``DIST_SAMPLE_LEAVES`` of (b)'s
+    leaves compressed again on a one-rank gloo group on the host: equal to
+    the card's means and error feedback within one int8 step of the second
+    scale (the elements that differ counted). No kernel of the port is on
+    this path: the counts must stay 0. Every check raises."""
+    from dataclasses import replace
+
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.compress import compressed_pmean, init_error_feedback
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.launch.mesh import BACKENDS, free_port, process_group
+    from repro_torch.launch.train import build_parser, train_lm
+    from repro_torch.models.model import demo_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.mesh_step import full_tensor, make_mesh_train_step
+    from repro_torch.train.state import make_abstract_state, make_state, state_shardings
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
+    sample: dict = {}
+    try:
+        with process_group(dev):
+            backend = tdist.get_backend()
+            if backend != BACKENDS[dev.type] or tdist.get_world_size() != 1:
+                raise AssertionError(f"dist: a {backend} group of "
+                                     f"{tdist.get_world_size()} ranks")
+            # ---- (a) train_lm --mesh 1,1 at full width
+            args = build_parser().parse_args(
+                ["--arch", LM_ARCH, "--steps", str(DIST_STEPS), "--batch",
+                 str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt-every",
+                 str(DIST_STEPS + 1), "--ckpt-dir", os.path.join(tmp, "full"),
+                 "--mesh", "1,1"])
+            torch.cuda.synchronize()
+            counts.start()
+            t0 = time.perf_counter()
+            out = train_lm(args, dev, install_signals=False)
+            run_s = time.perf_counter() - t0
+            counts.end("dist", [])  # no kernel of the port on this path
+            stats = out["loop"].stats
+            state = out["loop"].state
+            if out["mesh"] is None or tuple(out["mesh"].shape) != (1, 1):
+                raise AssertionError("dist: train_lm did not train on a (1, 1) mesh")
+            if not all(hasattr(t, "full_tensor") for t in leaves(state)):
+                raise AssertionError("dist: the mesh state is not DTensors")
+            want = trained["losses"][:DIST_STEPS]
+            rel = [abs(g - w) / abs(w) for g, w in zip(stats.losses, want)]
+            if len(rel) != DIST_STEPS or rel[0] > TRAIN_RESUME_RTOL or \
+                    max(rel) > TRAIN_LATER_RTOL:
+                raise AssertionError(f"dist: --mesh 1,1 losses {stats.losses} against "
+                                     f"the unsharded run's {want}")
+            step_s = float(np.median(stats.step_times[1:]))
+            log("dist", f"[{card}] train_lm --mesh 1,1 ({LM_ARCH} at full width, bf16, "
+                f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, the state as DTensors placed by "
+                f"state_shardings): losses {', '.join(f'{x:.4f}' for x in stats.losses)} "
+                f"against the train phase's unsharded {', '.join(f'{x:.4f}' for x in want)} "
+                f"(relative {', '.join(f'{x:.2e}' for x in rel)}); step wall (median of "
+                f"steps 2-{DIST_STEPS}) {step_s * 1e3:.2f} ms against the unsharded "
+                f"{trained['step_s'] * 1e3:.2f} ms (steps "
+                f"{', '.join(f'{x * 1e3:.1f}' for x in stats.step_times)} ms); "
+                f"train_lm {run_s:.1f} s in all")
+
+            # ---- (b) compressed_pmean over the full-width gradient tree
+            full = tree_map(full_tensor, state["params"])
+            batch = out["batch_fn"](DIST_STEPS)
+            _, grads = loss_and_grads(full, batch, out["cfg"])
+            del out, full, batch
+            n_entries = sum(g.numel() for g in leaves(grads))
+            pod = init_device_mesh(dev.type, (1,), mesh_dim_names=("pod",))
+            ef = init_error_feedback(grads)
+            with CollectiveCounter() as cc:
+                mean, new_ef = compressed_pmean(grads, ef, pod, axis="pod")
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(DIST_COMPRESS_CALLS):
+                t0 = time.perf_counter()
+                compressed_pmean(grads, ef, pod, axis="pod")
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            flat_g = dict(leaves_with_paths(grads))
+            by_size = sorted(flat_g, key=lambda k: flat_g[k].numel())
+            pick = [by_size[0], by_size[len(by_size) // 2],
+                    max((k for k in by_size if flat_g[k].numel() <= 1 << 26),
+                        key=lambda k: flat_g[k].numel())][:DIST_SAMPLE_LEAVES]
+            flat_m, flat_e = dict(leaves_with_paths(mean)), dict(leaves_with_paths(new_ef))
+            sample = {k: (flat_g[k].cpu(), flat_m[k].cpu(), flat_e[k].cpu()) for k in pick}
+            finite = all(bool(torch.isfinite(m).all()) for m in leaves(mean))
+            if not finite:
+                raise AssertionError("dist: compressed_pmean's mean is not finite")
+            wire = cc.total_bytes
+            log("dist", f"[{card}] compressed_pmean on NCCL over the {LM_ARCH} gradient "
+                f"tree ({n_entries / 1e6:.2f} M entries, {len(flat_g)} leaves, bf16): "
+                f"{float(np.median(times)) * 1e3:.3f} ms a call (median of "
+                f"{DIST_COMPRESS_CALLS}: {', '.join(f'{x * 1e3:.3f}' for x in times)} ms); "
+                f"on the wire {wire} B ({wire / n_entries:.4f} B an entry: "
+                + ", ".join(f"{k} {cc.calls[k]} x {cc.bytes[k]} B" for k in sorted(cc.calls))
+                + ")")
+            del grads, ef, mean, new_ef, state
+            torch.cuda.empty_cache()
+
+            # ---- (c) a checkpoint on the (1, 1) mesh, restored with shardings=
+            cfg_s = replace(REGISTRY[LM_ARCH].smoke(), vocab_size=VOCAB_SIZE)
+            opt = AdamWConfig()
+            mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+            abstract = make_abstract_state(cfg_s, opt)
+            sh = state_shardings(abstract, mesh, cfg_s)
+            st = place_tree(make_state(cfg_s, opt, seed=0, device=dev), sh)
+            st, _ = make_mesh_train_step(cfg_s, opt, mesh, sh)(
+                st, demo_batch(cfg_s, 2, 32, device=dev))
+            d = ckpt.save(st, 1, os.path.join(tmp, "mesh"))
+            back, s_back = ckpt.restore(os.path.dirname(d), abstract, device=dev,
+                                        shardings=sh)
+            same = all(hasattr(b, "full_tensor") and torch.equal(b.full_tensor(), a.full_tensor())
+                       for b, a in zip(leaves(back), leaves(st)))
+            if s_back != 1 or not same:
+                raise AssertionError("dist: the (1, 1) checkpoint restores differently")
+            log("dist", f"[{card}] a {cfg_s.name} smoke state trained one step at (1, 1), "
+                f"saved ({len(leaves(st))} leaves gathered, rank 0 writes) and restored "
+                f"with shardings=: DTensors equal to the saved state")
+            del st, back
+        # ---- (d) the sampled leaves on gloo on the host, the group destroyed
+        t0 = time.perf_counter()
+        tdist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
+                                 rank=0, world_size=1)
+        try:
+            host_pod = init_device_mesh("cpu", (1,), mesh_dim_names=("pod",))
+            g_tree = {k.replace("/", "."): v[0] for k, v in sample.items()}
+            h_mean, h_ef = compressed_pmean(g_tree, init_error_feedback(g_tree), host_pod)
+        finally:
+            tdist.destroy_process_group()
+        differ, steps = 0, []
+        for k, (g, m_card, e_card) in sample.items():
+            hk = k.replace("/", ".")
+            scale2 = float(h_mean[hk].abs().max()) / 127.0 + 1e-30
+            d_m = (m_card.float() - h_mean[hk]).abs()
+            d_e = (e_card.float() - h_ef[hk]).abs()
+            if float(d_m.max()) > scale2 * (1 + 1e-6) or float(d_e.max()) > scale2:
+                raise AssertionError(f"dist: compressed_pmean of {k} on the card and on "
+                                     f"the host differ by {float(d_m.max())} (step {scale2})")
+            differ += int((d_m > 0).sum()) + int((d_e > 0).sum())
+            steps.append(f"{k} ({g.numel()} entries)")
+        log("dist", f"[{card}] the same call on gloo on the host over {len(sample)} of its "
+            f"leaves ({', '.join(steps)}): the mean and the error feedback within one "
+            f"int8 step of the second scale of the card's; elements that differ at all: "
+            f"{differ}; {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log("dist", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def start_dryrun_probe() -> subprocess.Popen:
+    """``chip_smoke.py --dryrun-probe`` in a child process, killed at exit
+    if it is still running."""
+    import atexit
+
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dryrun-probe"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_probe() -> int:
+    """``chip_smoke.py --dryrun-probe``: the port's dry-run of the train
+    phase's full-width step (mamba2-780m with the tokenizer's vocabulary,
+    bf16, batch ``TRAIN_BATCH`` x seq ``TRAIN_SEQ``, one rank of a (1, 1)
+    mesh), traced on ``meta`` tensors on the host under a fake process
+    group; print its record's counts and roofline terms as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE)
+    t0 = time.perf_counter()
+    d = dryrun.trace_step(cfg, ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                          1, lambda dt: make_host_mesh(1, 1, device_type=dt))
+    rec = {"flops": d["flops"], "ops": d["ops"],
+           "argument_size_in_bytes": d["argument_size_in_bytes"],
+           "bytes_accessed": d["op_bytes"] + d["argument_size_in_bytes"],
+           "collective_bytes_total": d["collective_bytes_total"],
+           "collective_calls": d["collective_calls"],
+           "peak_flops": dryrun.PEAK_FLOPS, "hbm_bw": dryrun.HBM_BW,
+           "link_bw": dryrun.LINK_BW, "trace_s": time.perf_counter() - t0}
+    rec.update(dryrun.roofline_terms(rec))
+    print(json.dumps(rec), flush=True)
+    return 0
 
 
 def cluster_probe() -> int:
@@ -4236,6 +4488,8 @@ if __name__ == "__main__":
         sys.exit(decode_all_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--open-probe"]:
         sys.exit(open_probe(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--dryrun-probe"]:
+        sys.exit(dryrun_probe())
     if sys.argv[1:2] == ["--cluster-probe"]:
         sys.exit(cluster_probe())
     sys.exit(main())

@@ -17,6 +17,12 @@ Guarantees:
   in a background thread.
 * **Restore onto a device** — leaves are restored by path and placed on
   ``device``; missing or extra paths raise with the offending keys.
+* **Elastic restore** — ``restore(..., shardings=)`` places each leaf as a
+  DTensor by its sharding, on any mesh: a checkpoint holds whole leaves,
+  whatever mesh saved it.
+* **Saves under a mesh** — a state of DTensors is gathered leaf by leaf on
+  every rank (a collective: every rank calls ``save``), and rank 0 alone
+  writes the same keys and whole leaves a one-device save writes.
 * **Retention** — :func:`gc` prunes old steps, never the newest.
 
 bf16 leaves are stored as their ``uint16`` bit patterns and labelled
@@ -63,11 +69,28 @@ def _from_storable(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _whole(leaf):
+    """A DTensor's whole value (gathered on every rank), else the leaf."""
+    if hasattr(leaf, "full_tensor"):
+        return leaf.full_tensor()
+    return leaf
+
+
+def is_writer(state) -> bool:
+    """Whether this process writes ``state``'s checkpoints: always, but for
+    a state of DTensors, whose rank 0 alone writes."""
+    import torch.distributed as dist
+
+    sharded = any(hasattr(leaf, "full_tensor") for _, leaf in leaves_with_paths(state))
+    return not sharded or dist.get_rank() == 0
+
+
 def _snapshot(state) -> dict:
     """The state's leaves copied to host memory, keyed by path, as (array,
-    dtype name)."""
+    dtype name); DTensor leaves whole."""
     out = {}
     for key, leaf in leaves_with_paths(state):
+        leaf = _whole(leaf)
         if isinstance(leaf, torch.Tensor):
             out[key] = _to_storable(leaf.detach().to("cpu", copy=True))
         else:
@@ -100,9 +123,14 @@ def _write(snapshot: dict, step: int, directory: str, host_id: int) -> str:
 
 
 def save(state, step: int, directory: str, host_id: int = 0) -> str:
-    """Write ``state`` (a tree of tensors or numpy arrays) as step ``step``
-    and return the committed directory."""
-    return _write(_snapshot(state), step, directory, host_id)
+    """Write ``state`` (a tree of tensors, DTensors or numpy arrays) as step
+    ``step`` and return the committed directory (on every rank; only the
+    writer, :func:`is_writer`, writes)."""
+    snapshot = _snapshot(state)
+    final = os.path.join(directory, f"step_{step:08d}")
+    if is_writer(state):
+        final = _write(snapshot, step, directory, host_id)
+    return final
 
 
 class AsyncCheckpointer:
@@ -116,6 +144,8 @@ class AsyncCheckpointer:
     def save(self, state, step: int) -> None:
         snapshot = _snapshot(state)  # on the host before the next step runs
         self.wait()
+        if not is_writer(state):
+            return
         self._thread = threading.Thread(
             target=self._write, args=(snapshot, step), daemon=True)
         self._thread.start()
@@ -144,10 +174,14 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore(directory: str, abstract_state, step: int | None = None,
-            device="cuda"):
+            device="cuda", shardings=None):
     """Load a checkpoint into the tree of ``abstract_state`` (tensors whose
     shapes and dtypes are wanted, ``meta`` ones will do) on ``device``.
-    Returns (state, step)."""
+    ``shardings``: an optional tree of
+    :class:`~repro_torch.distributed.sharding.NamedSharding` matching
+    ``abstract_state``, on a ``DeviceMesh`` of ``device``'s type — the
+    elastic-resharding hook: each leaf becomes a DTensor holding this rank's
+    shard, whatever mesh the checkpoint came from. Returns (state, step)."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -173,8 +207,10 @@ def restore(directory: str, abstract_state, step: int | None = None,
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint/tree mismatch: {key} has shape "
                              f"{tuple(t.shape)}, the tree {tuple(leaf.shape)}")
-        return t.to(device=dev, dtype=leaf.dtype)
+        t = t.to(device=dev, dtype=leaf.dtype)
+        return flat_sh[key].place(t) if key in flat_sh else t
 
+    flat_sh = dict(leaves_with_paths(shardings)) if shardings is not None else {}
     return unflatten(abstract_state, [build(k, leaf) for k, leaf in
                                       leaves_with_paths(abstract_state)]), manifest["step"]
 

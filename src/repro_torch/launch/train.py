@@ -8,12 +8,23 @@ checkpoints)::
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 4 --batch 2 --seq 32
 
+  python -m torch.distributed.run --nproc-per-node 4 -m repro_torch.launch.train \\
+      --smoke --device cpu --mesh 2,2
+
 It runs on the card unless ``--device cpu`` is given; without CUDA and
 without ``--device cpu`` it exits non-zero before it builds anything. The
 model's vocabulary is the tokenizer's (65,539 ids) at every width: the
 batches carry ids up to 65,538, past the configs' own vocabularies. The
-weights are random (seed 0) and the step runs eagerly. ``--mesh`` is
-refused: sharding waits for a later slice of the port.
+weights are random (seed 0) and the step runs eagerly.
+
+``--mesh data,model`` trains on a ``DeviceMesh`` of that shape
+(:mod:`repro_torch.train.mesh_step`): one process per device, started by
+``torch.distributed.run`` (NCCL on the card, each rank on the card of its
+``LOCAL_RANK``; gloo with ``--device cpu``); ``--mesh 1,1`` also runs in
+one plain process. ``data * model`` must equal the number of processes.
+The state is placed by ``state_shardings`` (FSDP when the bf16 parameters
+pass 8 GB, the dry-run's rule), and rank 0 alone prints, writes the
+checkpoints and the ``--stats-json``.
 """
 
 from __future__ import annotations
@@ -42,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--mesh", default="",
-                    help="data,model axis sizes: refused until the port "
-                         "shards the model")
+                    help="data,model axis sizes (default: one device); "
+                         "data * model processes")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the model trains (default: the card)")
     ap.add_argument("--stats-json", default=None, metavar="PATH",
@@ -68,10 +79,17 @@ def train_lm(args: argparse.Namespace, device, install_signals: bool = True) -> 
     from repro_torch.device import resolve_device
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.loop import LoopConfig, TrainLoop
-    from repro_torch.train.state import make_abstract_state, make_state
+    from repro_torch.train.state import (make_abstract_state, make_state,
+                                         state_shardings)
     from repro_torch.train.train_step import make_train_step
 
     dev = resolve_device(device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_host_mesh, parse_mesh
+
+        mesh = make_host_mesh(*parse_mesh(args.mesh), device_type=dev.type)
+    say = print if mesh is None or mesh.get_rank() == 0 else (lambda *a, **k: None)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -79,21 +97,35 @@ def train_lm(args: argparse.Namespace, device, install_signals: bool = True) -> 
     # ---- data plane: OnPair-compressed corpus + OnPair tokenizer ----------
     strings = load_dataset(args.data, args.data_mib << 20)
     store = CompressedCorpusStore.build(strings, sample_bytes=2 << 20)
-    print(f"corpus: {store.n_docs} docs, ratio {store.compression_ratio:.2f}x,"
-          f" resident {store.memory_bytes / (1 << 20):.1f} MiB compressed",
-          flush=True)
+    say(f"corpus: {store.n_docs} docs, ratio {store.compression_ratio:.2f}x,"
+        f" resident {store.memory_bytes / (1 << 20):.1f} MiB compressed",
+        flush=True)
     pipe = TokenPipeline(store, BatchSpec(global_batch=args.batch,
                                           seq_len=args.seq, seed=0))
     # the OnPair dictionary is the vocabulary, at every width
     cfg = replace(cfg, vocab_size=store.tokenizer.vocab_size)
-    print(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
-          f"(smoke={args.smoke}, vocab {cfg.vocab_size}, {dev})", flush=True)
+    say(f"arch={cfg.name} params={cfg.n_params() / 1e6:.1f}M "
+        f"(smoke={args.smoke}, vocab {cfg.vocab_size}, {dev}"
+        + (f", mesh {args.mesh}" if mesh is not None else "") + ")", flush=True)
 
     # ---- model/optimizer ---------------------------------------------------
     opt = AdamWConfig(lr=args.lr)
     state = make_state(cfg, opt, seed=0, device=dev)
-    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches,
-                              schedule_total=args.steps)
+    abstract = make_abstract_state(cfg, opt)
+    shardings = None
+    if mesh is None:
+        step_fn = make_train_step(cfg, opt, microbatches=args.microbatches,
+                                  schedule_total=args.steps)
+    else:
+        from repro_torch.distributed.sharding import place_tree
+        from repro_torch.train.mesh_step import make_mesh_train_step
+
+        shardings = state_shardings(abstract, mesh, cfg,
+                                    fsdp=cfg.n_params() * 2 > 8e9)
+        state = place_tree(state, shardings)
+        step_fn = make_mesh_train_step(cfg, opt, mesh, shardings,
+                                       microbatches=args.microbatches,
+                                       schedule_total=args.steps)
 
     def batch_fn(step: int) -> dict:
         b = pipe.batch(step)
@@ -102,42 +134,58 @@ def train_lm(args: argparse.Namespace, device, install_signals: bool = True) -> 
     loop = TrainLoop(step_fn, state, batch_fn,
                      LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                                 ckpt_dir=args.ckpt_dir, log_every=10),
-                     abstract_state=make_abstract_state(cfg, opt), device=dev,
-                     install_signals=install_signals)
-    stats = loop.run()
+                     abstract_state=abstract, device=dev,
+                     install_signals=install_signals, shardings=shardings)
+    stats = loop.run(log=say)
     if stats.losses:
-        print(f"done: {stats.steps_run} steps, resumed_from={stats.resumed_from}, "
-              f"loss {stats.losses[0]:.3f} -> {stats.losses[-1]:.3f}, "
-              f"stragglers={stats.straggler_steps}", flush=True)
+        say(f"done: {stats.steps_run} steps, resumed_from={stats.resumed_from}, "
+            f"loss {stats.losses[0]:.3f} -> {stats.losses[-1]:.3f}, "
+            f"stragglers={stats.straggler_steps}", flush=True)
     else:
-        print(f"done: 0 steps, resumed_from={stats.resumed_from}", flush=True)
+        say(f"done: 0 steps, resumed_from={stats.resumed_from}", flush=True)
     return {"cfg": cfg, "store": store, "pipe": pipe, "step_fn": step_fn,
-            "batch_fn": batch_fn, "loop": loop}
+            "batch_fn": batch_fn, "loop": loop, "mesh": mesh,
+            "shardings": shardings}
 
 
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh waits for the port's sharding slice "
-                 "(distributed/sharding.py); the port trains on one device")
+        from repro_torch.launch.mesh import parse_mesh
+
+        try:
+            d, m = parse_mesh(args.mesh)
+        except ValueError as exc:
+            ap.error(str(exc))
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if d * m != world:
+            ap.error(f"--mesh {args.mesh} needs {d * m} processes, one per "
+                     f"device; this launch has {world} (start it with python -m "
+                     f"torch.distributed.run --nproc-per-node {d * m})")
+
+    from contextlib import nullcontext
 
     from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import process_group
 
     try:
         dev = resolve_device(args.device)
     except RuntimeError as exc:
         ap.exit(1, f"{ap.prog}: {exc}\n")
-    out = train_lm(args, dev)
-    if args.stats_json:
-        stats, cfg = out["loop"].stats, out["cfg"]
-        with open(args.stats_json, "w") as f:
-            json.dump({"arch": cfg.name, "vocab_size": cfg.vocab_size,
-                       "n_params": cfg.n_params(), "steps_run": stats.steps_run,
-                       "resumed_from": stats.resumed_from,
-                       "preempted": stats.preempted,
-                       "straggler_steps": stats.straggler_steps,
-                       "losses": stats.losses, "step_times": stats.step_times}, f)
+    with process_group(dev) if args.mesh else nullcontext():
+        out = train_lm(args, dev)
+        writer = out["mesh"] is None or out["mesh"].get_rank() == 0
+        if args.stats_json and writer:
+            stats, cfg = out["loop"].stats, out["cfg"]
+            with open(args.stats_json, "w") as f:
+                json.dump({"arch": cfg.name, "vocab_size": cfg.vocab_size,
+                           "n_params": cfg.n_params(), "steps_run": stats.steps_run,
+                           "resumed_from": stats.resumed_from,
+                           "preempted": stats.preempted,
+                           "straggler_steps": stats.straggler_steps,
+                           "losses": stats.losses, "step_times": stats.step_times,
+                           "mesh": args.mesh}, f)
 
 
 if __name__ == "__main__":

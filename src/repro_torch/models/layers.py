@@ -3,9 +3,12 @@ bias / cross / decode), SwiGLU MLP, and capacity-based MoE.
 
 All layers are plain functions over parameter dicts of tensors (no module
 framework — init functions mirror apply functions), with the reference's
-names, keys and shapes. The sharding hooks (``set_mesh_context``,
-``constrain``, ``batch_axes``) are kept as no-ops: with no mesh they are
-no-ops in the reference too.
+names, keys and shapes. The sharding hooks read the mesh that
+:func:`repro_torch.distributed.sharding.use_mesh` makes active
+(``batch_axes``, the axis sizes); ``constrain`` stays the identity, because
+the port's layers run on the rank's local tensors (see its docstring). A
+step that splits the batch over the data axes says so with
+:func:`split_batch`, and ``moe`` then routes over every rank's tokens.
 
 Attention is *query-chunked*: scores are materialised one (chunk_q, S) slab
 at a time (a Python loop over query blocks), O(S·chunk) live memory instead
@@ -21,6 +24,7 @@ the card and the host get the same weights for one seed.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -28,21 +32,82 @@ import torch
 import torch.nn.functional as F
 
 # ---------------------------------------------------------------- sharding
-_MESH_CTX: list = [None]
+_MESH_CTX: list = [None]  # set by repro_torch.distributed.sharding.use_mesh
+#: the process groups over which the running step split its batch, outer
+#: axis first (``pod`` then ``data``), or None; set by :func:`split_batch`
+_SPLIT_CTX: list = [None]
 
 
 def set_mesh_context(mesh) -> None:
     _MESH_CTX[0] = mesh
 
 
+def mesh_shape(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or of a plain mapping, in
+    the mesh's axis order."""
+    if hasattr(mesh, "mesh_dim_names"):
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return {str(k): int(v) for k, v in dict(mesh).items()}
+
+
 def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
-    """A sharding constraint; a no-op until the port shards the LM."""
+    """The identity, inside a mesh context too. The reference's
+    ``with_sharding_constraint`` tells GSPMD how to lay out a global array;
+    the port's layers only ever see the rank's local tensors (the mesh step
+    gathers the parameters and hands each rank its share of the batch), so
+    there is nothing to constrain."""
     return x
 
 
 def batch_axes(mesh=None) -> tuple:
-    """The composite data-parallel axis set; none without a mesh."""
-    return (None,)
+    """The composite data-parallel axis set present in the ambient mesh."""
+    mesh = mesh if mesh is not None else _MESH_CTX[0]
+    if mesh is None:
+        return (None,)
+    names = mesh_shape(mesh)
+    return (tuple(a for a in ("pod", "data") if a in names),)
+
+
+def _mesh_axis_size(name: str) -> int:
+    mesh = _MESH_CTX[0]
+    if mesh is None:
+        return 1
+    return int(mesh_shape(mesh).get(name, 1))
+
+
+@contextlib.contextmanager
+def split_batch(groups):
+    """Mark the code inside as running on one rank's share of a batch split
+    over ``groups`` (process groups, outer axis first; the shares in rank
+    order, outer axis major). ``moe`` then takes its capacity and slots from
+    the tokens of every share, as the reference's SPMD program does."""
+    _SPLIT_CTX[0] = list(groups) or None
+    try:
+        yield
+    finally:
+        _SPLIT_CTX[0] = None
+
+
+def _gather_shares(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``x`` of every share of the split batch, concatenated along dim 0 in
+    share order, and this rank's share index. Without a split: ``x``, 0."""
+    groups = _SPLIT_CTX[0]
+    if not groups:
+        return x, 0
+    import torch.distributed as dist
+
+    index = 0
+    for g in reversed(groups):  # innermost axis first: outer-axis-major order
+        n = dist.get_world_size(g)
+        out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=g)
+        x = out
+    scale = 1
+    for g in reversed(groups):
+        index += dist.get_rank(g) * scale
+        scale *= dist.get_world_size(g)
+    return x, index
 
 
 # ------------------------------------------------------------------ random
@@ -266,7 +331,10 @@ def moe(params, x, cfg) -> torch.Tensor:
 
     Tokens pick top_k experts; assignments beyond each expert's capacity are
     dropped (standard capacity-factor semantics), in the order of a stable
-    sort of the assignments by expert, as in the reference.
+    sort of the assignments by expert, as in the reference. Under
+    :func:`split_batch` the capacity and the slots are those of the whole
+    batch, so a rank keeps and drops what the one-device call would; its
+    expert buffers hold only its own tokens (the other slots stay zero).
     """
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -278,23 +346,29 @@ def moe(params, x, cfg) -> torch.Tensor:
     gate_vals, expert_idx = top_k(probs, K)                   # (T, K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    C = int(np.ceil(T * K / E * cfg.capacity_factor))
-    C = max(8, min(C, T))
     flat_expert = expert_idx.reshape(-1)                      # (T*K,)
+    # capacity and slots come from the tokens of the whole batch: under a
+    # batch split, every share's routing (ints) is gathered first
+    all_expert, share = _gather_shares(flat_expert)
+    T_all = all_expert.shape[0] // K
+    C = int(np.ceil(T_all * K / E * cfg.capacity_factor))
+    C = max(8, min(C, T_all))
     # position of each assignment within its expert's bucket, via a stable
     # sort (jnp.argsort is stable; the drops below depend on this order)
     A = flat_expert.shape[0]
-    sorted_idx = torch.argsort(flat_expert, stable=True)
-    sorted_exp = flat_expert[sorted_idx]
-    counts = torch.bincount(flat_expert, minlength=E)
+    sorted_idx = torch.argsort(all_expert, stable=True)
+    sorted_exp = all_expert[sorted_idx]
+    counts = torch.zeros((E,), dtype=all_expert.dtype, device=dev).index_add_(
+        0, all_expert, torch.ones_like(all_expert))          # bincount, also on meta
     starts = torch.cumsum(counts, 0) - counts                 # (E,)
-    pos_sorted = torch.arange(A, device=dev) - starts[sorted_exp]
-    slot = torch.zeros((A,), dtype=torch.int64, device=dev)
+    pos_sorted = torch.arange(all_expert.shape[0], device=dev) - starts[sorted_exp]
+    slot = torch.zeros(all_expert.shape, dtype=torch.int64, device=dev)
     slot[sorted_idx] = pos_sorted
+    slot = slot[share * A : (share + 1) * A]                  # this share's
     keep = slot < C
     # dropped assignments land in dump column C
     wslot = torch.where(keep, slot, C)
-    if T >= 4096:
+    if T_all >= 4096:
         # scatter of token indices, then a gather of their rows
         assign_tok = torch.arange(A, device=dev) // K         # source token
         slot_tok = torch.full((E, C + 1), T, dtype=torch.int64, device=dev)

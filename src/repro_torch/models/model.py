@@ -1,5 +1,10 @@
-"""Model entry points: family dispatch, loss, serve paths, parameters,
-caches and demo batches.
+"""Model entry points: family dispatch, loss, serve paths, input specs,
+parameters, caches and demo batches.
+
+``input_specs(cfg, shape)`` gives ``meta`` tensors standing in for every
+model input of an (architecture x shape) cell (shapes and dtypes, nothing
+allocated), for the launcher and the dry-run; ``param_specs`` and
+``cache_specs`` do the same for the parameters and the decode cache.
 
 Every entry point that makes tensors takes ``device=`` and defaults to the
 card (:func:`repro_torch.device.resolve_device`); the others run where their
@@ -12,8 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import (decode_step, encoder_forward, forward,
+from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
+from repro_torch.models.transformer import (abstract_cache, abstract_params,
+                                            decode_step, encoder_forward, forward,
                                             init_cache, init_params, prefill,
                                             torch_dtype)
 
@@ -51,6 +57,49 @@ def serve_prefill(params, batch: dict, cfg: ArchConfig, max_seq: int | None = No
 
 def serve_decode(params, cache, batch: dict, cfg: ArchConfig):
     return decode_step(params, cache, batch["token"], cfg)
+
+
+# --------------------------------------------------------------- input specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig | str) -> dict:
+    """``meta`` stand-ins for the cell's model inputs.
+
+    train   -> {"tokens","targets"} (+ modality stubs)
+    prefill -> {"tokens"}           (+ modality stubs)
+    decode  -> {"token"}            (cache specs come from cache_specs())
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B, S = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.dtype)
+    specs: dict = {}
+    if shape.kind == "train":
+        specs["tokens"] = _meta((B, S), torch.int32)
+        specs["targets"] = _meta((B, S), torch.int32)
+    elif shape.kind == "prefill":
+        specs["tokens"] = _meta((B, S), torch.int32)
+    else:  # decode: one new token against a seq_len cache
+        specs["token"] = _meta((B, 1), torch.int32)
+    if cfg.family == "encdec" and shape.kind != "decode":
+        specs["enc_embed"] = _meta((B, cfg.enc_seq, cfg.d_model), dt)
+    if cfg.family == "vlm" and shape.kind != "decode":
+        specs["vision_embed"] = _meta((B, cfg.n_vision_tokens, cfg.d_model), dt)
+    return specs
+
+
+def param_specs(cfg: ArchConfig):
+    return abstract_params(cfg)
+
+
+def cache_specs(cfg: ArchConfig, shape: ShapeConfig | str):
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    if shape.kind != "decode":
+        raise ValueError(f"cache specs are for decode cells, not {shape.kind}")
+    return abstract_cache(cfg, shape.global_batch, shape.seq_len)
 
 
 # ------------------------------------------------------------ concrete build

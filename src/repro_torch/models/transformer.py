@@ -276,6 +276,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, memory=None,
             "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> Params:
+    """The cache tree's shapes and dtypes as ``meta`` tensors."""
+    return init_cache(cfg, batch, max_seq, device=torch.device("meta"))
+
+
 # ------------------------------------------------------------------- decode
 def decode_step(params, cache, token, cfg: ArchConfig, memory=None):
     """One decode step: token (B, 1) int32, cache from init_cache/prefill.

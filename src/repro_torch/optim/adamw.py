@@ -92,43 +92,59 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(tree)))
 
 
+def step_scalars(count, gnorm, cfg: AdamWConfig, lr_scale=1.0):
+    """The step's clip factor, bias corrections and learning rate, from the
+    new count and the gradients' global norm."""
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    bc1 = 1.0 - cfg.b1 ** count.float()
+    bc2 = 1.0 - cfg.b2 ** count.float()
+    return clip, bc1, bc2, cfg.lr * lr_scale
+
+
+@torch.no_grad()
+def update_leaf(p, g, m, v, clip, bc1, bc2, lr, cfg: AdamWConfig) -> None:
+    """One parameter leaf's AdamW update, written into ``p``, ``m`` and
+    ``v`` (fp32 tensors, or q8 dicts of the whole leaf)."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.float() * clip
+    if cfg.quantized_moments:
+        mf = dequantize_q8(m, p.shape)
+        vf = dequantize_q8(v, p.shape)
+    else:
+        mf, vf = m, v
+    mf = b1 * mf + (1 - b1) * g
+    vf = b2 * vf + (1 - b2) * torch.square(g)
+    step = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+    p32 = p.float()
+    p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
+    if cfg.quantized_moments:
+        for dst, src in ((m, quantize_q8(mf)), (v, quantize_q8(vf))):
+            dst["q"].copy_(src["q"])
+            dst["scale"].copy_(src["scale"])
+    else:
+        m.copy_(mf)
+        v.copy_(vf)
+
+
+def param_nodes(params, *trees) -> list[tuple]:
+    """``(param leaf, node of each tree at its path)`` in sorted key order;
+    a node is a tensor or, for q8 moments, the leaf's ``{"q", "scale"}``."""
+    if isinstance(params, dict):
+        out = []
+        for k in sorted(params):
+            out += param_nodes(params[k], *(t[k] for t in trees))
+        return out
+    return [(params, *trees)]
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step. Returns (params, state): the parameter and moment
     tensors passed in, written in place, and a new count."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - b1 ** count.float()
-    bc2 = 1.0 - b2 ** count.float()
-    lr = cfg.lr * lr_scale
-
-    def upd(p, g, m, v):
-        if isinstance(p, dict):
-            for k in p:
-                upd(p[k], g[k], m[k], v[k])
-            return
-        g = g.float() * clip
-        if cfg.quantized_moments:
-            mf = dequantize_q8(m, p.shape)
-            vf = dequantize_q8(v, p.shape)
-        else:
-            mf, vf = m, v
-        mf = b1 * mf + (1 - b1) * g
-        vf = b2 * vf + (1 - b2) * torch.square(g)
-        step = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-        p32 = p.float()
-        p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
-        if cfg.quantized_moments:
-            for dst, src in ((m, quantize_q8(mf)), (v, quantize_q8(vf))):
-                dst["q"].copy_(src["q"])
-                dst["scale"].copy_(src["scale"])
-        else:
-            m.copy_(mf)
-            v.copy_(vf)
-
-    upd(params, grads, state["m"], state["v"])
+    scalars = step_scalars(count, global_norm(grads), cfg, lr_scale)
+    for p, g, m, v in param_nodes(params, grads, state["m"], state["v"]):
+        update_leaf(p, g, m, v, *scalars, cfg)
     return params, {"m": state["m"], "v": state["v"], "count": count}
 
 

@@ -55,16 +55,21 @@ class TrainLoop:
     step (or the state's own) to ``cfg.total_steps``. ``abstract_state``
     (the state's tree as ``meta`` tensors) enables the resume; a restored
     state is placed on ``device``, by default the device of the state's
-    step counter."""
+    step counter. ``shardings`` (a tree of ``NamedSharding`` matching
+    the state) restores a mesh run's state as DTensor shards; under a mesh
+    every rank runs the loop, and rank 0 alone writes and prunes the
+    checkpoints."""
 
     def __init__(self, train_step, state, batch_fn, cfg: LoopConfig,
-                 abstract_state=None, device=None, install_signals=True):
+                 abstract_state=None, device=None, install_signals=True,
+                 shardings=None):
         self.train_step = train_step
         self.state = state
         self.batch_fn = batch_fn
         self.cfg = cfg
         self.abstract_state = abstract_state
         self.device = device if device is not None else state["step"].device
+        self.shardings = shardings
         self.stats = LoopStats()
         self._stop = False
         self.ckpt = ckpt_lib.AsyncCheckpointer(cfg.ckpt_dir)
@@ -83,7 +88,8 @@ class TrainLoop:
         step = ckpt_lib.latest_step(self.cfg.ckpt_dir)
         if step is not None and self.abstract_state is not None:
             self.state, step = ckpt_lib.restore(
-                self.cfg.ckpt_dir, self.abstract_state, step, device=self.device)
+                self.cfg.ckpt_dir, self.abstract_state, step, device=self.device,
+                shardings=self.shardings)
             self.stats.resumed_from = step
             return step
         return int(self.state["step"])
@@ -110,7 +116,8 @@ class TrainLoop:
                 log(f"step {step}: loss={loss:.4f} ({dt*1e3:.0f} ms)")
             if step % self.cfg.ckpt_every == 0:
                 self.ckpt.save(self.state, step)
-                ckpt_lib.gc(self.cfg.ckpt_dir, self.cfg.keep_ckpts)
+                if ckpt_lib.is_writer(self.state):
+                    ckpt_lib.gc(self.cfg.ckpt_dir, self.cfg.keep_ckpts)
         if self._stop:
             # preemption: synchronous final save so no work is lost
             self.ckpt.wait()

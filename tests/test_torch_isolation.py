@@ -52,6 +52,13 @@ TRAIN_MODULES = ("repro_torch.tree", "repro_torch.optim",
                  "repro_torch.runtime", "repro_torch.runtime.loop",
                  "repro_torch.data", "repro_torch.data.corpus",
                  "repro_torch.data.pipeline", "repro_torch.launch.train")
+#: the distributed layer: the sharding rules, the compressed all-reduce, the
+#: collective counter, the meshes, mesh training, the dry-run and the
+#: roofline report (importing them starts no process group)
+DIST_MODULES = ("repro_torch.distributed", "repro_torch.distributed.sharding",
+                "repro_torch.distributed.compress", "repro_torch.distributed.comm",
+                "repro_torch.launch.mesh", "repro_torch.train.mesh_step",
+                "repro_torch.launch.dryrun", "repro_torch.launch.roofline")
 
 
 def _forbidden(module: str) -> bool:
@@ -75,17 +82,19 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'repro'))\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # no module starts a process group\n"
         "wire = sorted(set(WIRE) - set(names))\n"
         "print(len(names), bad, wire)\n").replace(
             "WIRE", repr(WIRE_MODULES + CLIENT_MODULES + LM_MODULES
-                         + TRAIN_MODULES))
+                         + TRAIN_MODULES + DIST_MODULES))
     proc = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad, missing = proc.stdout.strip().split(" ", 2)
     assert int(count) >= 20  # every module was imported
     assert bad == "[]"
-    assert missing == "[]"  # the wire's, the clients', the LM's and training's
+    assert missing == "[]"  # the wire's, the clients', the LM's, training's, the mesh's
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SMOKE],
@@ -116,6 +125,11 @@ def test_wire_modules_are_scanned(module):
 
 @pytest.mark.parametrize("module", CLIENT_MODULES)
 def test_client_modules_are_scanned(module):
+    assert _module_path(module) in set(PKG.rglob("*.py"))
+
+
+@pytest.mark.parametrize("module", DIST_MODULES)
+def test_dist_modules_are_scanned(module):
     assert _module_path(module) in set(PKG.rglob("*.py"))
 
 

@@ -193,9 +193,10 @@ def test_launcher_refuses_without_a_card_and_refuses_a_mesh(tmp_path):
     assert proc.returncode == 1
     assert "CUDA is not available" in proc.stderr
     assert "corpus:" not in proc.stdout  # nothing was built
-    proc = _train(["--smoke", "--device", "cpu", "--mesh", "1,1"], env=NO_CARD_ENV)
+    # a mesh of two devices in a launch of one process
+    proc = _train(["--smoke", "--device", "cpu", "--mesh", "2,1"], env=NO_CARD_ENV)
     assert proc.returncode == 2
-    assert "--mesh waits for the port's sharding slice" in proc.stderr
+    assert "--mesh 2,1 needs 2 processes" in proc.stderr
     assert proc.stdout == ""
 
 
