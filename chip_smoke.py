@@ -241,6 +241,15 @@ TRAIN_CHILD_ARGS = ["--smoke", "--batch", "2", "--seq", "32", "--data-mib", "1"]
 DIST_STEPS = 4  # full-width steps of train_lm --mesh 1,1, held to the train phase's first ones
 DIST_COMPRESS_CALLS = 3  # timed compressed_pmean calls over the full-width gradient tree
 DIST_SAMPLE_LEAVES = 3  # of its leaves, compressed again on gloo on the host
+TP_MESH = (1, 2)  # (data, model) of the dist phase's tensor-parallel ranks, both on the card
+#: their smoke configs (fp32), with the changes the CPU tests make
+TP_SMOKE = {"mamba2-780m": {}, "yi-9b": {"n_kv_heads": 2}, "qwen3-moe-30b-a3b": {},
+            "mixtral-8x22b": {}, "whisper-medium": {}}
+TP_BATCH, TP_SEQ = 4, 16  # their prefill batch; the cache holds TP_SEQ + TP_DECODE
+TP_DECODE = 4  # decode steps after each prefill
+TP_TRAIN_STEPS = 2  # train steps from step 50
+TP_TOL = 1e-4  # smoke ranks against the card's one-device run, of the largest |value|
+TP_CHILD_S = 300.0  # deadline of the two ranks, from their start
 EDGE = [b"", b"a", b"ab", b"abcdefgh", b"abcdefghi", b"x" * 100,
         bytes(range(256)), b"\x00" * 20, b"abracadabra abracadabra"]
 
@@ -2443,16 +2452,19 @@ def main() -> int:
     # --------------------------------------------------------------- 9. LM
     # the launcher's LM role: prompts fetched through the decode kernel from
     # a store built on the encode kernel, prefill and decode on the card
-    lm_host = lm_phase(card, dev, counts)
+    lm = lm_phase(card, dev, counts)
     # -------------------------------------------------------------- 10. train
     # the training launcher: the smoke configs' steps card against host,
     # resume and preemption in child processes, mamba2-780m at full width
-    trained = train_phase(card, dev, counts, lm_host, dry)
-    del lm_host
+    # the dist phase's two tensor-parallel ranks start here, beside the
+    # train phase's own children; its timed full-width run waits for them
+    ranks = start_tp_ranks(dev, lm["fp32_card"])
+    trained = train_phase(card, dev, counts, lm.pop("host"), dry, ranks["procs"])
     # --------------------------------------------------------------- 11. dist
     # the distributed layer: a one-rank NCCL group, compressed_pmean over the
-    # full-width gradients, train_lm --mesh 1,1, a checkpoint on the mesh
-    dist_phase(card, dev, counts, trained)
+    # full-width gradients, train_lm --mesh 1,1, a checkpoint on the mesh,
+    # and the two tensor-parallel ranks of a (1, 2) mesh on gloo
+    dist_phase(card, dev, counts, trained, lm["fp32_card"], ranks)
     kernels = []
     for name, source, replaces in (
             ("decode_compact", "src/repro_torch/kernels/csrc/onpair_decode.cu",
@@ -3408,7 +3420,9 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> dict:
     over its prompt batch; and prefill against decode at full width on the
     card; one more bf16 step of the launcher's weights and cache under the
     profiler, beside its bound. Every check raises. Returns the host's fp32
-    draw of the full-width weights, for the train phase."""
+    draw of the full-width weights (``host``), for the train phase, and the
+    fp32 card run over the prompt batch (``fp32_card``: its tokens, the ids
+    fed to its decode steps and its logits), for the dist phase."""
     from dataclasses import replace
 
     from repro_torch.configs import REGISTRY
@@ -3566,12 +3580,18 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> dict:
                                    max_seq=args.max_seq)
             errs = [rel_err(lc, lh)]
             same = [bool(torch.equal(lc.argmax(-1).cpu(), lh.argmax(-1)))]
+            # the one-device card run the dist phase's tensor-parallel ranks
+            # are held to: the prompt batch, the ids fed, the card's logits
+            fp32_card = {"tokens": tokens.clone(), "max_seq": args.max_seq,
+                         "ids": [], "logits": [lc.cpu()]}
             for _ in range(LM_FP32_DECODE):
                 tok = lh.argmax(-1)[:, None].to(torch.int32)  # the host's ids
                 lh, ch = serve_decode(p_host, ch, {"token": tok}, cfg32)
                 lc, cc = serve_decode(p_card, cc, {"token": tok.to(dev)}, cfg32)
                 errs.append(rel_err(lc, lh))
                 same.append(bool(torch.equal(lc.argmax(-1).cpu(), lh.argmax(-1))))
+                fp32_card["ids"].append(tok.clone())
+                fp32_card["logits"].append(lc.cpu())
             del ch, lh
             card_vs_host = max(errs)
             log("lm", f"[{card}] {LM_ARCH} fp32 at full width, card vs host (TF32 "
@@ -3609,12 +3629,13 @@ def lm_phase(card: str, dev: torch.device, counts: PathCounts) -> dict:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         torch.cuda.empty_cache()
     log("lm", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
-    return p_host
+    return {"host": p_host, "fp32_card": fp32_card}
 
 
 def train_phase(card: str, dev: torch.device, counts: PathCounts,
                 lm_host: dict | None = None,
-                dry: subprocess.Popen | None = None) -> dict:
+                dry: subprocess.Popen | None = None,
+                wait_for: list[subprocess.Popen] = ()) -> dict:
     """The LM training path (``python -m repro_torch.launch.train``).
 
     (a) Every architecture at its smoke config in fp32 (TF32 off), from a
@@ -3639,7 +3660,8 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
     (d) The same config in fp32, batch 1 x seq 32, card against host: the
     loss and every gradient leaf within ``TRAIN_GATE`` of the leaf's
     largest value (``lm_host``: the lm phase's host draw of the weights).
-    (d) runs while the children of (b) do; (c) after they have exited.
+    (d) runs while the children of (b) do; (c) after they, and the
+    processes in ``wait_for`` (the dist phase's ranks), have exited.
     The dry-run of (c)'s step (``dry``, the ``--dryrun-probe`` child on the
     host, started here if not before) prints its roofline terms beside the
     bound. No kernel of the port is on
@@ -3956,6 +3978,11 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
             f"card; a bf16 card state saved and restored on the host == its leaves; "
             f"{time.perf_counter() - t0:.1f} s after (a)")
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        for proc in wait_for:  # the dist phase reads and checks them
+            try:
+                proc.wait(timeout=TP_CHILD_S)
+            except subprocess.TimeoutExpired:
+                pass
 
         # ---- (c) mamba2-780m at full width through the launcher, bf16
         args = build_parser().parse_args(
@@ -4052,7 +4079,8 @@ def train_phase(card: str, dev: torch.device, counts: PathCounts,
         log("train", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
 
 
-def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict) -> None:
+def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
+               fp32_card: dict | None = None, ranks: dict | None = None) -> None:
     """The distributed layer (``repro_torch.distributed``, ``launch.mesh``,
     ``train.mesh_step``) on a one-rank NCCL process group of the card
     (``tcp://localhost`` at a free port; no gloo fallback):
@@ -4073,8 +4101,21 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict) 
     then, the NCCL group destroyed, (d) ``DIST_SAMPLE_LEAVES`` of (b)'s
     leaves compressed again on a one-rank gloo group on the host: equal to
     the card's means and error feedback within one int8 step of the second
-    scale (the elements that differ counted). No kernel of the port is on
-    this path: the counts must stay 0. Every check raises."""
+    scale (the elements that differ counted); (e) two ranks of a
+    ``TP_MESH`` = (1, 2) mesh on the one card (``--tp-rank`` children, started
+    together by :func:`start_tp_ranks` before the train phase, or here
+    when ``ranks`` is None, meeting over gloo with CUDA tensors, since NCCL
+    takes one rank a device), tensor-parallel over ``model``: the
+    ``TP_SMOKE`` configs in fp32 (TF32 off), the mesh prefill, ``TP_DECODE``
+    decode steps and ``TP_TRAIN_STEPS`` train steps held to the card's
+    one-device run within ``TP_TOL`` (:func:`tp_reference`), and mamba2-780m
+    at full width in fp32 (48 SSM heads, 24 a rank) over the lm phase's
+    prompt batch (``fp32_card``), prefill and ``LM_FP32_DECODE`` decode
+    steps held to the lm phase's one-device card logits within ``LM_GATE``
+    with equal greedy ids; each rank's parameter bytes and the matmul flops
+    of one decode step beside the one-device run's; no leaf split over
+    ``model`` gathered over it. No kernel of the port is on this path: the
+    counts must stay 0. Every check raises."""
     from dataclasses import replace
 
     import torch.distributed as tdist
@@ -4098,6 +4139,8 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict) 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip-smoke-dist-")
     sample: dict = {}
+    ranks = ranks or start_tp_ranks(dev, fp32_card)
+    tp_dir, procs = ranks["dir"], ranks["procs"]
     try:
         with process_group(dev):
             backend = tdist.get_backend()
@@ -4222,10 +4265,424 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict) 
             f"leaves ({', '.join(steps)}): the mean and the error feedback within one "
             f"int8 step of the second scale of the card's; elements that differ at all: "
             f"{differ}; {time.perf_counter() - t0:.1f} s")
+
+        # ---- (e) the tensor-parallel ranks against the one-device run
+        t0 = time.perf_counter()
+        counts.start()
+        want = tp_reference(dev, fp32_card["max_seq"] if fp32_card else TP_SEQ)
+        counts.end("dist", [])  # the one-device runs launch no kernel of the port
+        ref_s = time.perf_counter() - t0
+        deadline = ranks["t0"] + TP_CHILD_S
+        for r, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dist: tensor-parallel rank {r} still running "
+                                     f"after {TP_CHILD_S} s") from None
+        ranks_s = max(ranks["ended"].get(r, time.perf_counter()) for r in range(len(procs))) \
+            - ranks["t0"]
+        for r, proc in enumerate(procs):
+            if proc.returncode != 0:
+                with open(os.path.join(tp_dir, f"rank{r}.log")) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"dist: tensor-parallel rank {r} exited "
+                                     f"{proc.returncode}: {tail}")
+        got = [torch.load(os.path.join(tp_dir, f"rank{r}.pt"), weights_only=False)
+               for r in range(len(procs))]
+        tp_check(card, got, want, fp32_card, ref_s, ranks_s)
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tp_dir, ignore_errors=True)
         torch.cuda.empty_cache()
     log("dist", f"the phase's wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def start_tp_ranks(dev: torch.device, fp32_card: dict | None) -> dict:
+    """Start the dist phase's ``TP_MESH`` ranks together (``chip_smoke.py
+    --tp-rank``, output to a log each), with the lm phase's prompt batch
+    and ids (``fp32_card``) saved for them; killed at exit if still
+    running. Returns their directory, processes and start time, and a map
+    that a watcher thread fills with each one's end time."""
+    import atexit
+
+    from repro_torch.launch.mesh import free_port
+
+    tp_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    if fp32_card is not None:
+        torch.save({k: fp32_card[k] for k in ("tokens", "ids", "max_seq")},
+                   os.path.join(tp_dir, "inputs.pt"))
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(TP_MESH[0] * TP_MESH[1]):
+        with open(os.path.join(tp_dir, f"rank{r}.log"), "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), str(port),
+                 tp_dir, dev.type], stdout=f, stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}))
+    ended: dict = {}
+
+    def watch():
+        for r, proc in enumerate(procs):
+            proc.wait()
+            ended[r] = time.perf_counter()
+
+    threading.Thread(target=watch, daemon=True).start()
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return {"dir": tp_dir, "procs": procs, "t0": t0, "ended": ended}
+
+
+def _tp_cut(t: torch.Tensor, spec: tuple, rank: int, m: int) -> torch.Tensor:
+    """The part of ``t`` that the rank at index ``rank`` of ``m`` on
+    ``model`` holds under ``spec`` (a mesh whose data axis has one rank)."""
+    for d, entry in enumerate(spec):
+        if "model" in (entry if isinstance(entry, tuple) else (entry,)):
+            t = t.chunk(m, d)[rank]
+    return t
+
+
+def _tp_cfg(name: str):
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+
+    return replace(REGISTRY[name].smoke(), dtype="float32", **TP_SMOKE[name])
+
+
+def tp_reference(dev: torch.device, max_seq: int) -> dict:
+    """The one-device card run (fp32, TF32 off) that the dist phase's
+    tensor-parallel ranks are held to: for each ``TP_SMOKE`` config, the
+    prefill and decode logits, the train steps' losses and state (on the
+    host), each parameter's allowance (lr x the change of each step for a
+    gradient change of ``TP_TOL`` of the leaf's largest gradient: Adam
+    divides every entry by its own magnitude, as the CPU tests allow) and
+    the state's shardings on a ``TP_MESH``; and, on ``meta`` tensors,
+    mamba2-780m's full-width fp32 parameter bytes and the matmul flops of
+    one decode step of the lm phase's prompt batch (5 rows, a cache of
+    ``max_seq``)."""
+    from dataclasses import replace
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.models.model import demo_batch, serve_decode, serve_prefill
+    from repro_torch.models.transformer import abstract_cache, abstract_params
+    from repro_torch.optim.adamw import (AdamWConfig, cosine_schedule, param_nodes)
+    from repro_torch.train.state import make_abstract_state, make_state, state_shardings
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    mesh = {"data": TP_MESH[0], "model": TP_MESH[1]}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {}
+    try:
+        for name in TP_SMOKE:
+            cfg = _tp_cfg(name)
+            opt = AdamWConfig()
+            state = make_state(cfg, opt, seed=0, device=dev)
+            state["step"].fill_(50)
+            with torch.no_grad():
+                logits, cache = serve_prefill(
+                    state["params"], demo_batch(cfg, TP_BATCH, TP_SEQ, kind="prefill",
+                                                seed=1, device=dev),
+                    cfg, max_seq=TP_SEQ + TP_DECODE)
+                steps = []
+                for i in range(TP_DECODE):
+                    tok = demo_batch(cfg, TP_BATCH, 1, kind="decode", seed=2 + i, device=dev)
+                    lg, cache = serve_decode(state["params"], cache, tok, cfg)
+                    steps.append(lg.cpu())
+            step = make_train_step(cfg, opt)
+            losses, allowance = [], None
+            for i in range(TP_TRAIN_STEPS):
+                batch = demo_batch(cfg, TP_BATCH, TP_SEQ, kind="train", seed=i, device=dev)
+                _, grads = loss_and_grads(state["params"], batch, cfg)
+                norm = sum(float(g.double().square().sum()) for g in leaves(grads)) ** 0.5
+                clip = min(1.0, opt.grad_clip / (norm + 1e-9))
+                count = int(state["opt"]["count"]) + 1
+                bc1, bc2 = 1 - opt.b1 ** count, 1 - opt.b2 ** count
+                lr = opt.lr * float(cosine_schedule(state["step"]))
+                nodes = param_nodes(state["params"], state["opt"]["m"], state["opt"]["v"],
+                                    grads)
+                more = {}
+                for (path, _), (_, m, v, g) in zip(leaves_with_paths(state["params"]), nodes):
+                    g, m, v = g.double() * clip, m.double(), v.double()
+
+                    def adam(x, m=m, v=v):
+                        mf = opt.b1 * m + (1 - opt.b1) * x
+                        vf = opt.b2 * v + (1 - opt.b2) * x * x
+                        return (mf / bc1) / (torch.sqrt(vf / bc2) + opt.eps)
+
+                    d = TP_TOL * float(g.abs().max())
+                    more[path] = (lr * torch.maximum((adam(g + d) - adam(g)).abs(),
+                                                     (adam(g - d) - adam(g)).abs())).cpu()
+                allowance = more if allowance is None else \
+                    {k: allowance[k] + more[k] for k in more}
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            out[name] = {"logits": logits.cpu(), "steps": steps, "losses": losses,
+                         "state": tree_map(lambda t: t.cpu(), state),
+                         "allowance": allowance,
+                         "shardings": state_shardings(make_abstract_state(cfg, opt), mesh,
+                                                      cfg)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cfg32 = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE, dtype="float32")
+    aparams = abstract_params(cfg32)
+    with FlopCounterMode(display=False) as fc:
+        serve_decode(aparams, abstract_cache(cfg32, 5, max_seq),
+                     {"token": torch.empty((5, 1), dtype=torch.int32, device="meta")},
+                     cfg32)
+    out["full"] = {"param_bytes": sum(t.numel() * t.element_size() for t in leaves(aparams)),
+                   "decode_flops": int(fc.get_total_flops())}
+    return out
+
+
+def tp_check(card: str, got: list, want: dict, fp32_card: dict | None,
+             ref_s: float, ranks_s: float) -> None:
+    """Hold each tensor-parallel rank's results (:func:`tp_rank`) to the
+    one-device run's (:func:`tp_reference`, and the lm phase's full-width
+    card logits), and log them; every check raises."""
+    from repro_torch.tree import leaves_with_paths
+
+    m = TP_MESH[1]
+
+    def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    worst, calls = {}, 0
+    for name in TP_SMOKE:
+        w = want[name]
+        errs = []
+        for r, rank in enumerate(got):
+            g = rank["smoke"][name]
+            if g["bad"]:
+                raise AssertionError(f"dist: rank {r} gathered model-sharded leaves of "
+                                     f"{name} over model: {g['bad'][:3]}")
+            calls += g["model_calls"]
+            for what, a, b in [("prefill", g["logits"], w["logits"])] + [
+                    (f"decode {i + 1}", x, y) for i, (x, y) in enumerate(zip(g["steps"],
+                                                                           w["steps"]))]:
+                errs.append(rel(a, b))
+                if a.shape != b.shape or errs[-1] > TP_TOL:
+                    raise AssertionError(f"dist: {name} rank {r} {what} logits differ from "
+                                         f"the one-device run by {errs[-1]:.3e}")
+            for a, b in zip(g["losses"], w["losses"]):
+                if abs(a - b) > TP_TOL * abs(b):
+                    raise AssertionError(f"dist: {name} rank {r} losses {g['losses']} "
+                                         f"against {w['losses']}")
+            specs = dict(leaves_with_paths(w["shardings"]))
+            mine = dict(leaves_with_paths(g["state"]))
+            allow = w["allowance"]
+            for path, whole in leaves_with_paths(w["state"]):
+                part = _tp_cut(whole, specs[path].spec, r, m)
+                a = mine[path]
+                if a.shape != part.shape or a.dtype != part.dtype:
+                    raise AssertionError(f"dist: {name} rank {r} {path}: {tuple(a.shape)} "
+                                         f"{a.dtype}, not {tuple(part.shape)} {part.dtype}")
+                diff = (a.double() - part.double()).abs()
+                key = path.removeprefix("params/")
+                if path.startswith("params/"):
+                    diff = diff - _tp_cut(allow[key], specs[path].spec, r, m) * (1 + 1e-6)
+                bound = TP_TOL * max(float(whole.double().abs().max()), 1e-30)
+                if float(diff.max()) > bound:
+                    raise AssertionError(f"dist: {name} rank {r} {path} after "
+                                         f"{TP_TRAIN_STEPS} steps: {float(diff.max()):.3e} "
+                                         f"> {bound:.3e}")
+        worst[name] = max(errs)
+    log("dist", f"[{card}] (e) two ranks of a {TP_MESH} mesh on the card, tensor-parallel "
+        f"over model, meeting over gloo with CUDA tensors; {len(TP_SMOKE)} smoke configs in "
+        f"fp32 (TF32 off): prefill ({TP_BATCH}, {TP_SEQ}), {TP_DECODE} decode steps and "
+        f"{TP_TRAIN_STEPS} train steps from step 50 == the card's one-device run within "
+        f"{TP_TOL} (logits per rank, the losses, and every parameter and moment shard, "
+        f"beyond each step's Adam allowance); worst logit error per arch: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; no model-sharded leaf gathered over model; {calls} collectives over model "
+        f"in all; the one-device runs {ref_s:.1f} s, the ranks {ranks_s:.1f} s from their "
+        f"start (each: {', '.join(str(x['times']) for x in got)})")
+    if fp32_card is None:
+        return
+    full = want["full"]
+    errs, same = [], []
+    for r, rank in enumerate(got):
+        f = rank["full"]
+        if f["bad"]:
+            raise AssertionError(f"dist: rank {r} gathered model-sharded leaves of "
+                                 f"{LM_ARCH} over model: {f['bad'][:3]}")
+        for i, (a, b) in enumerate(zip(f["logits"], fp32_card["logits"], strict=True)):
+            errs.append(rel(a, b))
+            same.append(bool(torch.equal(a.argmax(-1), b.argmax(-1))))
+            if errs[-1] > LM_GATE or not same[-1]:
+                raise AssertionError(f"dist: {LM_ARCH} at full width rank {r} call {i}: "
+                                     f"{errs[-1]:.3e} from the one-device card run (gate "
+                                     f"{LM_GATE}), greedy ids equal {same[-1]}")
+    heads = got[0]["full"]["heads"]
+    log("dist", f"[{card}] (e) {LM_ARCH} at full width in fp32 on the two ranks "
+        f"({heads * m} SSM heads, {heads} a rank; vocab {got[0]['full']['vocab']}, "
+        f"embedding split by {got[0]['full']['embed']}), the lm phase's "
+        f"{tuple(fp32_card['tokens'].shape)} prompt batch, prefill + {LM_FP32_DECODE} decode "
+        f"steps: max abs err / max |logit| against the lm phase's one-device card run "
+        f"{max(errs):.3e} (gate {LM_GATE}); greedy ids equal {all(same)}; parameter bytes a "
+        f"rank {', '.join(str(x['full']['param_bytes']) for x in got)} against "
+        f"{full['param_bytes']} on one device; matmul flops of one decode step "
+        f"(FlopCounterMode) a rank {', '.join(str(x['full']['decode_flops']) for x in got)} "
+        f"against {full['decode_flops']} on one device; "
+        f"{sum(x['full']['model_calls'] for x in got)} collectives over model")
+
+
+def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda") -> int:
+    """``chip_smoke.py --tp-rank RANK PORT DIR [DEVICE]``: one of the dist phase's
+    tensor-parallel ranks, on the card, in a gloo group of
+    ``TP_MESH``'s ranks at ``localhost:PORT``: the ``TP_SMOKE`` configs'
+    mesh prefill, decode and train steps, and, where ``DIR/inputs.pt``
+    holds the lm phase's prompt batch, mamba2-780m at full width in fp32
+    over it (one decode step under ``FlopCounterMode``), under the
+    collective counter; writes ``DIR/rank{RANK}.pt``. (``device_type``
+    ``"cpu"`` runs it on the host, for a rehearsal.)"""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from dataclasses import replace
+
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.tokenizer import VOCAB_SIZE
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models.model import build_params, demo_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.mesh_step import (local, make_mesh_decode_step,
+                                             make_mesh_prefill_step, make_mesh_train_step)
+    from repro_torch.train.state import make_abstract_state, make_state, state_shardings
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type, 0)
+    if device_type == "cuda":
+        torch.cuda.set_device(dev)
+    m = TP_MESH[1]
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                             world_size=TP_MESH[0] * TP_MESH[1])
+    try:
+        mesh = init_device_mesh(device_type, TP_MESH, mesh_dim_names=("data", "model"))
+        group = mesh.get_group("model").group_name
+        idx = mesh.get_local_rank("model")
+
+        def place(tree, shardings):
+            """The rank's shards, cut on the host and moved to the card."""
+            return tree_map(lambda t, s: DTensor.from_local(
+                _tp_cut(t, s.spec, idx, m).to(dev), mesh, list(s.placements()),
+                run_check=False), tree, shardings)
+
+        def forbidden(tree, shardings) -> set:
+            """The shapes of the leaves split over model, whole and a block."""
+            specs = dict(leaves_with_paths(shardings))
+            out = set()
+            for p, t in leaves_with_paths(tree):
+                if "model" in str(specs[p].spec):
+                    out |= {tuple(t.shape), tuple(t.shape[1:])} if "blocks" in p \
+                        else {tuple(t.shape)}
+            return out
+
+        def report(counters, bad_shapes) -> dict:
+            return {"bad": [s for c in counters for g, s in c.gathered
+                            if g == group and s in bad_shapes],
+                    "model_calls": sum(n for c in counters for (g, _), n in c.by_group.items()
+                                       if g == group)}
+
+        results: dict = {"smoke": {}, "times": {}}
+        inputs = os.path.join(out_dir, "inputs.pt")
+        full_cfg = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE, dtype="float32")
+        drawn: dict = {}
+        # the full-width weights are drawn on the host while the smoke
+        # configs run (torch's generator releases the interpreter lock)
+        draw = threading.Thread(target=lambda: drawn.update(
+            params=build_params(full_cfg, seed=0, device="cpu")), daemon=True)
+        if os.path.exists(inputs):
+            draw.start()
+        t0 = time.perf_counter()
+        for name in TP_SMOKE:
+            cfg = _tp_cfg(name)
+            opt = AdamWConfig()
+            whole = make_state(cfg, opt, seed=0, device="cpu")
+            whole["step"].fill_(50)
+            sh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg)
+            state = place(whole, sh)
+            bad = forbidden(whole["params"], sh["params"])
+            with CollectiveCounter() as cc:
+                logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=TP_SEQ + TP_DECODE)(
+                    state["params"], demo_batch(cfg, TP_BATCH, TP_SEQ, kind="prefill",
+                                                seed=1, device=dev))
+                decode = make_mesh_decode_step(cfg, mesh)
+                steps = []
+                for i in range(TP_DECODE):
+                    tok = demo_batch(cfg, TP_BATCH, 1, kind="decode", seed=2 + i, device=dev)
+                    lg, cache = decode(state["params"], cache, tok)
+                    steps.append(lg.cpu())
+            step = make_mesh_train_step(cfg, opt, mesh, sh)
+            losses = []
+            with CollectiveCounter() as tc:
+                for i in range(TP_TRAIN_STEPS):
+                    state, metrics = step(state, demo_batch(cfg, TP_BATCH, TP_SEQ,
+                                                            kind="train", seed=i, device=dev))
+                    losses.append(float(metrics["loss"]))
+            results["smoke"][name] = {"logits": logits.cpu(), "steps": steps,
+                                      "losses": losses,
+                                      "state": tree_map(lambda t: local(t).cpu(), state),
+                                      **report([cc, tc], bad)}
+        results["times"]["smoke_s"] = round(time.perf_counter() - t0, 1)
+        if os.path.exists(inputs):
+            t0 = time.perf_counter()
+            inp = torch.load(inputs, weights_only=False)
+            cfg = full_cfg
+            draw.join()
+            params = drawn.pop("params")
+            sh = param_shardings(params, mesh, cfg)
+            bad = forbidden(params, sh)
+            placed = place(params, sh)
+            embed_spec = dict(leaves_with_paths(sh))["embed"].spec
+            del params
+            results["times"]["weights_wait_s"] = round(time.perf_counter() - t0, 1)
+            t0 = time.perf_counter()
+            with torch.no_grad(), CollectiveCounter() as cc:
+                lg, cache = make_mesh_prefill_step(cfg, mesh, max_seq=inp["max_seq"])(
+                    placed, {"tokens": inp["tokens"].to(dev)})
+                got = [lg.cpu()]
+                decode = make_mesh_decode_step(cfg, mesh)
+                with FlopCounterMode(display=False) as fc:
+                    lg, cache = decode(placed, cache, {"token": inp["ids"][0].to(dev)})
+                got.append(lg.cpu())
+                for ids in inp["ids"][1:]:
+                    lg, cache = decode(placed, cache, {"token": ids.to(dev)})
+                    got.append(lg.cpu())
+            results["times"]["full_s"] = round(time.perf_counter() - t0, 1)
+            results["full"] = {
+                "logits": got, "decode_flops": int(fc.get_total_flops()),
+                "param_bytes": sum(local(t).numel() * local(t).element_size()
+                                   for t in leaves(placed)),
+                "heads": local(placed["blocks"]["l0"]["ssm"]["A_log"]).shape[-1],
+                "vocab": cfg.vocab_size,
+                "embed": "vocabulary" if embed_spec[0] == "model" else
+                         "columns" if embed_spec[1] == "model" else "nothing",
+                **report([cc], bad)}
+        results["times"]["all_s"] = round(time.perf_counter() - t_start, 1)
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+        print(f"tp-rank {rank}: {results['times']}", flush=True)
+    finally:
+        tdist.destroy_process_group()
+    return 0
 
 
 def start_dryrun_probe() -> subprocess.Popen:
@@ -4490,6 +4947,8 @@ if __name__ == "__main__":
         sys.exit(open_probe(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--dryrun-probe"]:
         sys.exit(dryrun_probe())
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *sys.argv[5:6]))
     if sys.argv[1:2] == ["--cluster-probe"]:
         sys.exit(cluster_probe())
     sys.exit(main())

@@ -11,6 +11,11 @@ Bytes are those of each op's result on this rank (the payload it receives),
 as the reference's HLO analysis counts them: an all-gather counts the
 gathered tensor, a reduce-scatter the shard, an all-reduce its tensor, an
 all-to-all its output. A group of one rank counts too (NCCL still copies).
+Each collective is also counted by the process group it runs on
+(``by_group``, keyed ``(group name, kind)``: a mesh axis's group is
+``mesh.get_group(axis).group_name``), and the shape of every all-gather's
+result is kept with its group (``gathered``), which is how a test sees
+that no parameter sharded over ``model`` is gathered over ``model``.
 Every other op runs untouched, at the cost of one Python call each, so
 keep the counter off timed work.
 """
@@ -20,6 +25,7 @@ from __future__ import annotations
 from collections import Counter
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 #: ``namespace::op`` -> the kind the reference's records use
@@ -46,6 +52,22 @@ KINDS = {
 }
 
 
+def _group_name(func, args) -> str | None:
+    """The name of the group a collective runs on: the functional ops
+    take it as their last string argument, the ``c10d`` ones take the
+    boxed ``ProcessGroup``."""
+    if func.namespace == "_c10d_functional":
+        names = [a for a in args if isinstance(a, str)]
+        return names[-1] if names else None
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).group_name
+            except (RuntimeError, TypeError, AttributeError):
+                continue
+    return None
+
+
 def tensor_bytes(x) -> int:
     """The bytes of the tensors in ``x`` (a tensor or nested lists of them)."""
     if isinstance(x, torch.Tensor):
@@ -57,12 +79,16 @@ def tensor_bytes(x) -> int:
 
 class CollectiveCounter(TorchDispatchMode):
     """``with CollectiveCounter() as cc: ...``; then ``cc.calls`` and
-    ``cc.bytes`` map each kind to its count and bytes."""
+    ``cc.bytes`` map each kind to its count and bytes, ``cc.by_group``
+    each ``(group name, kind)`` to its calls, and ``cc.gathered`` lists
+    ``(group name, result shape)`` of every all-gather."""
 
     def __init__(self):
         super().__init__()
         self.calls: Counter = Counter()
         self.bytes: Counter = Counter()
+        self.by_group: Counter = Counter()
+        self.gathered: list[tuple[str | None, tuple[int, ...]]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -73,6 +99,13 @@ class CollectiveCounter(TorchDispatchMode):
             result = args[0] if func.namespace == "c10d" else out
             self.calls[kind] += 1
             self.bytes[kind] += tensor_bytes(result)
+            group = _group_name(func, args)
+            self.by_group[group, kind] += 1
+            if kind == "all-gather":
+                for t in (result if isinstance(result, (list, tuple)) else [result]):
+                    shapes = ([tuple(x.shape) for x in t] if isinstance(t, (list, tuple))
+                              else [tuple(t.shape)])
+                    self.gathered += [(group, sh) for sh in shapes]
         return out
 
     @property

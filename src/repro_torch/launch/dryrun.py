@@ -29,9 +29,11 @@ roofline terms, ``bottleneck``, ``model_flops`` and ``useful_ratio``. It
 drops ``flops_hlo_raw``, ``bytes_hlo_raw``, ``compile_s``, ``lower_s`` and
 the other XLA memory-analysis fields: nothing is lowered or compiled, and
 ``launch/hlo_analysis.py``, which reads XLA's HLO text, stays with the
-reference. The step's compute over ``model`` is replicated in this port
-(tensor-parallel compute is not ported), so a rank's flops are those of
-its whole data-parallel share.
+reference. The step is tensor-parallel over ``model`` as the rules place
+the weights, so a rank's flops are its data-parallel share's with what is
+split over ``model`` divided by the axis (attention whose heads do not
+divide, the MoE router and the replicated leaves stay whole on every
+rank), and its collectives include the ``model`` axis's all-reduces.
 
 The roofline constants are the card's, not the reference's TPU's:
 NVIDIA's data sheet for the NVIDIA H100 80GB HBM3 (SXM) at its 700.00 W

@@ -17,7 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
+from repro_torch.models.layers import model_group
 from repro_torch.models.transformer import (abstract_cache, abstract_params,
                                             decode_step, encoder_forward, forward,
                                             init_cache, init_params, prefill,
@@ -42,12 +44,33 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, remat: bool = True):
     """Token-mean cross entropy in f32 (stable logsumexp). Differentiable:
     :mod:`repro_torch.train.train_step` takes its gradients with
     ``torch.autograd.grad``; ``remat`` as in :func:`forward
-    <repro_torch.models.transformer.forward>`."""
+    <repro_torch.models.transformer.forward>`. Where the logits are the
+    rank's vocabulary columns (a head split over ``model``), it is the
+    vocabulary-parallel cross entropy: the max, the sum of exponentials and
+    the target's logit are all-reduced over ``model``, and no rank forms
+    the whole (B, S, V) logits."""
     logits = model_forward(params, batch, cfg, remat=remat).float()
     targets = batch["targets"].long()
+    if logits.shape[-1] < cfg.vocab_size:
+        return _vocab_parallel_xent(logits, targets)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
     return (logz - gold).mean()
+
+
+def _vocab_parallel_xent(logits, targets):
+    """The token-mean cross entropy of the rank's vocabulary columns
+    ``logits`` (..., V/m), the columns of rank r being [r V/m, (r+1) V/m)."""
+    g = model_group()
+    Vl = logits.shape[-1]
+    shift = tp.all_max(logits.amax(dim=-1, keepdim=True), g)
+    z = logits - shift
+    sumexp = tp.reduce(torch.exp(z).sum(dim=-1), g)
+    ids = targets - tp.rank(g) * Vl
+    inside = (ids >= 0) & (ids < Vl)
+    gold = torch.take_along_dim(z, ids.clamp(0, Vl - 1)[..., None], dim=-1)[..., 0]
+    gold = tp.reduce(gold.masked_fill(~inside, 0.0), g)
+    return (torch.log(sumexp) - gold).mean()
 
 
 def serve_prefill(params, batch: dict, cfg: ArchConfig, max_seq: int | None = None):

@@ -13,6 +13,13 @@ reference's keys and shapes. Numerics follow the reference: ``softplus`` is
 ``logaddexp(x, 0)`` (torch's own has a threshold at 20), the causal mask is
 applied in log space before the ``exp``, and the mixed-dtype einsums run in
 fp32 as jax promotes them.
+
+Under a ``model`` axis the block is head-parallel, as the rules place it:
+``w_z``/``w_x``/``w_dt``, the x convolution, ``A_log``/``D``/``dt_bias``,
+the gated norm's scale and the cache's state and x tail are the rank's
+block of heads, ``w_BC`` is replicated, and ``w_out`` is row-parallel (one
+all-reduce). The gated RMSNorm normalises over the whole d_inner: its sum
+of squares is all-reduced over ``model``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import normal, rms_norm
+from repro_torch.distributed import tp
+from repro_torch.models.layers import model_group, normal, rms_norm
 
 _G = 1  # B/C projection groups (Mamba2 default n_groups=1)
 
@@ -55,6 +63,33 @@ def init_ssm(key, cfg, layer_dtype) -> dict:
     }
 
 
+def _heads(params, cfg):
+    """The model group and the rank's SSM heads: every head with no
+    ``model`` axis, else the rank's block (the rules split the head-wise
+    leaves only when the heads divide)."""
+    inner, H, P, _ = ssm_dims(cfg)
+    if params["w_x"].shape[1] == inner:
+        return None, H
+    Hl = params["A_log"].shape[0]
+    if Hl * P != params["w_x"].shape[1]:
+        raise ValueError(f"{cfg.name}: {H} SSM heads do not divide over the "
+                         f"model axis that splits d_inner {inner}")
+    return model_group(), Hl
+
+
+def _gated_norm(y, z, scale, cfg, g):
+    """``rms_norm(y * silu(z), scale)`` over the whole d_inner: with a
+    ``model`` axis ``y`` and ``z`` are the rank's columns, and their sum of
+    squares is all-reduced (its gradient too: every rank's columns read
+    it)."""
+    if g is None:
+        return rms_norm(y * F.silu(z), scale, cfg.norm_eps)
+    x = (y * F.silu(z)).float()
+    sq = torch.sum(torch.square(x), dim=-1, keepdim=True)
+    var = tp.copy(tp.reduce(sq, g), g) / (cfg.ssm_expand * cfg.d_model)
+    return ((x * torch.rsqrt(var + cfg.norm_eps)) * (1.0 + scale.float())).to(y.dtype)
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``."""
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -74,15 +109,19 @@ def _causal_conv(u, conv_w, conv_b):
 def ssd_apply(params, x_in, cfg, chunk: int = 128, return_state: bool = False):
     """Full-sequence SSD. x_in: (B, S, D) -> (B, S, D) [, decode cache]."""
     Bsz, S, Dm = x_in.shape
-    inner, H, P, N = ssm_dims(cfg)
+    _, _, P, N = ssm_dims(cfg)
+    g, H = _heads(params, cfg)
+    inner = H * P
     f32 = torch.float32
-    z = x_in @ params["w_z"]
-    x_raw = x_in @ params["w_x"]
+    xf = tp.copy(x_in, g)
+    z = xf @ params["w_z"]
+    x_raw = xf @ params["w_x"]
     BC_raw = x_in @ params["w_BC"]
-    dt_raw = x_in @ params["w_dt"]
+    dt_raw = xf @ params["w_dt"]
 
     xc = _causal_conv(x_raw, params["conv_x"], params["conv_bx"])
-    BCc = _causal_conv(BC_raw, params["conv_BC"], params["conv_bBC"])
+    # B and C are every head's: their gradient from the rank's heads is a share
+    BCc = tp.copy(_causal_conv(BC_raw, params["conv_BC"], params["conv_bBC"]), g)
     x = xc.reshape(Bsz, S, H, P)
     Bm = BCc[..., : _G * N].reshape(Bsz, S, _G, N)
     Cm = BCc[..., _G * N :].reshape(Bsz, S, _G, N)
@@ -135,8 +174,8 @@ def ssd_apply(params, x_in, cfg, chunk: int = 128, return_state: bool = False):
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
     y = y + params["D"][None, None, :, None] * x.to(f32)
     y = y.reshape(Bsz, S, inner).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = y @ params["w_out"]
+    y = _gated_norm(y, z, params["norm"], cfg, g)
+    out = tp.reduce(y @ params["w_out"], g)
     if return_state:
         W = params["conv_x"].shape[0]
         if S >= W - 1:
@@ -145,6 +184,11 @@ def ssd_apply(params, x_in, cfg, chunk: int = 128, return_state: bool = False):
         else:
             tail_x = F.pad(x_raw, (0, 0, W - 1 - S, 0))
             tail_BC = F.pad(BC_raw, (0, 0, W - 1 - S, 0))
+        # the B/C tail as the cache holds it: the rank's channels where
+        # they divide over model
+        m = tp.size(model_group())
+        if m > 1 and tail_BC.shape[-1] % m == 0:
+            tail_BC = tp.part(tail_BC, tail_BC.shape[-1] // m, model_group())
         return out, {"state": final_state,
                      "conv_x": tail_x.to(x_in.dtype),
                      "conv_BC": tail_BC.to(x_in.dtype)}
@@ -166,21 +210,30 @@ def ssd_decode(params, x_in, cache, cfg):
     """One-token recurrent step. x_in: (B, 1, D) -> (B, 1, D), cache.
 
     The cache is updated in place and returned: its state and conv tails
-    are the tensors passed in, advanced by one token."""
+    are the tensors passed in, advanced by one token. Under a ``model``
+    axis they are the rank's heads and channels: its B/C tail runs the
+    depthwise convolution on its channels, whose outputs are gathered."""
     Bsz = x_in.shape[0]
-    inner, H, P, N = ssm_dims(cfg)
+    _, _, P, N = ssm_dims(cfg)
+    g, H = _heads(params, cfg)
+    inner = H * P
     f32 = torch.float32
-    z = (x_in @ params["w_z"])[:, 0]
-    x_raw = (x_in @ params["w_x"])[:, 0]
+    xf = tp.copy(x_in, g)
+    z = (xf @ params["w_z"])[:, 0]
+    x_raw = (xf @ params["w_x"])[:, 0]
     BC_raw = (x_in @ params["w_BC"])[:, 0]
-    dt_raw = (x_in @ params["w_dt"])[:, 0]
+    dt_raw = (xf @ params["w_dt"])[:, 0]
 
     win_x = torch.cat([cache["conv_x"], x_raw[:, None, :]], dim=1)
-    win_BC = torch.cat([cache["conv_BC"], BC_raw[:, None, :]], dim=1)
     xc = F.silu(torch.einsum("bwc,wc->bc", win_x, params["conv_x"])
                 + params["conv_bx"])
-    BCc = F.silu(torch.einsum("bwc,wc->bc", win_BC, params["conv_BC"])
-                 + params["conv_bBC"])
+    nbc = cache["conv_BC"].shape[-1]
+    gbc = model_group() if nbc < 2 * _G * N else None
+    win_BC = torch.cat([cache["conv_BC"], tp.part(BC_raw, nbc, gbc)[:, None, :]],
+                       dim=1)
+    BCc = F.silu(torch.einsum("bwc,wc->bc", win_BC, tp.part(params["conv_BC"], nbc, gbc))
+                 + tp.part(params["conv_bBC"], nbc, gbc))
+    BCc = tp.gather(BCc, -1, gbc)
     x = xc.reshape(Bsz, H, P)
     Bm = BCc[..., : _G * N].reshape(Bsz, N)
     Cm = BCc[..., _G * N :].reshape(Bsz, N)
@@ -193,8 +246,8 @@ def ssd_decode(params, x_in, cache, cfg):
     y = torch.einsum("bn,bhpn->bhp", Cm.to(f32), state)
     y = y + params["D"][None, :, None] * x.to(f32)
     y = y.reshape(Bsz, inner).to(x_in.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = (y @ params["w_out"])[:, None, :]
+    y = _gated_norm(y, z, params["norm"], cfg, g)
+    out = tp.reduce(y @ params["w_out"], g)[:, None, :]
     cache["conv_x"].copy_(win_x[:, 1:, :])
     cache["conv_BC"].copy_(win_BC[:, 1:, :])
     return out, cache

@@ -10,6 +10,12 @@ Three entry points per architecture (built in repro_torch.models.model):
   forward      — full-sequence logits
   prefill      — forward + materialised KV/SSM caches, last-position logits
   decode_step  — one token against the caches
+
+Under a ``model`` axis (:mod:`repro_torch.models.layers`) the embedding is
+looked up from the rank's rows (vocabulary-parallel: a masked lookup,
+then an all-reduce) or columns (then an all-gather), ``forward`` returns
+the rank's vocabulary columns of the logits where the head is split by
+vocabulary, and ``prefill``/``decode_step`` gather them whole.
 """
 
 from __future__ import annotations
@@ -21,10 +27,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tp
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (attention, decode_attention,
-                                       init_attention, init_mlp, init_moe, mlp,
-                                       moe, normal, rms_norm, rope, softcap)
+from repro_torch.models.layers import (out_proj, attend_cache, attention,
+                                       cache_kv, decode_attention, init_attention,
+                                       init_mlp, init_moe, mlp, model_group, moe,
+                                       normal, rms_norm, softcap)
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssd_apply, ssd_decode
 
 Params = dict[str, Any]
@@ -177,7 +185,7 @@ def encoder_forward(params, enc_embed, cfg: ArchConfig):
         x = x + attention(lp["attn"], h, h, cfg, causal=False, window=None,
                           cap=None)
         h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + mlp(lp["ffn"], h)
+        return x + mlp(lp["ffn"], h, cfg.d_ff)
 
     x = enc_embed
     for lp in unstack_blocks(params["enc_blocks"]):
@@ -190,7 +198,8 @@ def _ffn(x, lp, sub: SubLayer, cfg: ArchConfig):
     if "ffn" not in lp:
         return x
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + (moe(lp["ffn"], h, cfg) if sub.use_moe else mlp(lp["ffn"], h))
+    return x + (moe(lp["ffn"], h, cfg) if sub.use_moe
+                else mlp(lp["ffn"], h, cfg.d_ff))
 
 
 def _gate(lp, x):
@@ -215,9 +224,50 @@ def _apply_sublayer(x, lp, sub: SubLayer, cfg: ArchConfig, memory, q_offset=0):
     return _ffn(x, lp, sub, cfg)
 
 
+def embed(params, tokens, cfg: ArchConfig) -> torch.Tensor:
+    """The token embeddings (B, S, D): from the rank's vocabulary rows
+    (ids outside them give zeros, summed over ``model``) or its columns
+    (gathered) where the table is split over ``model``."""
+    table = params["embed"]
+    if table.shape[0] < cfg.vocab_size:
+        g = model_group()
+        lo = tp.rank(g) * table.shape[0]
+        ids = tokens.long() - lo
+        inside = (ids >= 0) & (ids < table.shape[0])
+        x = table[ids.clamp(0, table.shape[0] - 1)].masked_fill(~inside[..., None], 0)
+        return tp.reduce(x, g)
+    if table.shape[1] < cfg.d_model:
+        return tp.gather(table[tokens], -1, model_group())
+    return table[tokens]
+
+
 def _logits(params, x, cfg: ArchConfig):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap(x @ head, cfg.final_logit_softcap)
+    """The logits of ``x``: the rank's vocabulary columns where the head
+    (``lm_head``'s columns, or the tied embedding's rows) is split over
+    ``model``; whole where it is replicated, or where the tied embedding is
+    split by columns (partial sums over the rank's slice of ``x``,
+    reduced)."""
+    V = cfg.vocab_size
+    if cfg.tie_embeddings:
+        table = params["embed"]
+        g = model_group() if table.shape != (V, cfg.d_model) else None
+        if table.shape[0] < V:
+            out = tp.copy(x, g) @ table.T
+        else:
+            out = out_proj(x, table.T, g, False)
+    else:
+        head = params["lm_head"]
+        g = model_group() if head.shape[1] < V else None
+        out = tp.copy(x, g) @ head
+    return softcap(out, cfg.final_logit_softcap)
+
+
+def whole_logits(logits, cfg: ArchConfig) -> torch.Tensor:
+    """``logits`` with every vocabulary column: the ranks' columns gathered
+    over ``model`` where they are split."""
+    if logits.shape[-1] < cfg.vocab_size:
+        return tp.gather(logits, -1, model_group())
+    return logits
 
 
 def forward(params, tokens, cfg: ArchConfig, memory=None, remat: bool = True):
@@ -233,7 +283,7 @@ def forward(params, tokens, cfg: ArchConfig, memory=None, remat: bool = True):
             x = _apply_sublayer(x, bp[f"l{i}"], sub, cfg, memory)
         return x
 
-    x = params["embed"][tokens]
+    x = embed(params, tokens, cfg)
     for bp in unstack_blocks(params["blocks"]):
         x = _remat(block, x, bp) if remat else block(x, bp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -291,7 +341,7 @@ def decode_step(params, cache, token, cfg: ArchConfig, memory=None):
     clone the cache first to keep the one passed in."""
     plan = block_plan(cfg)
     pos = cache["pos"]
-    x = params["embed"][token]
+    x = embed(params, token, cfg)
     for b in range(cfg.n_blocks):
         bp = block_at(params["blocks"], b)
         bc = block_at(cache["blocks"], b)
@@ -316,21 +366,21 @@ def decode_step(params, cache, token, cfg: ArchConfig, memory=None):
                         {"k": lc["xk"], "v": lc["xv"]}, cfg)
             x = _ffn(x, lp, sub, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x, cfg)[:, 0]
+    logits = whole_logits(_logits(params, x, cfg)[:, 0], cfg)
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
 
 
 def _cross_decode(lp, h, lc, cfg):
-    """Cross-attention against cached memory K/V (decode path)."""
+    """Cross-attention against cached memory K/V (decode path); under a
+    ``model`` axis as :func:`~repro_torch.models.layers.decode_attention`
+    attends."""
     B = h.shape[0]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ lp["attn"]["wq"]).reshape(B, 1, H, hd)
-    rep = H // K
-    qh = q.reshape(B, K, rep, hd)
-    scores = torch.einsum("bkrh,bskh->bkrs", qh, lc["k"]).float()
-    probs = torch.softmax(scores * (hd ** -0.5), dim=-1).to(h.dtype)
-    out = torch.einsum("bkrs,bskh->bkrh", probs, lc["v"]).reshape(B, 1, H * hd)
-    return out @ lp["attn"]["wo"]
+    H, hd = cfg.n_heads, cfg.hd
+    wq = lp["attn"]["wq"]
+    g = model_group() if wq.shape[1] < H * hd else None
+    q = tp.gather(tp.copy(h, g) @ wq, -1, g).reshape(B, H, hd)
+    out = attend_cache(q, lc["k"], lc["v"], cfg, g=model_group())
+    return out_proj(out, lp["attn"]["wo"], g, False)
 
 
 # ------------------------------------------------------------------ prefill
@@ -345,9 +395,8 @@ def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None):
     B, S = tokens.shape
     max_seq = max_seq or S
     plan = block_plan(cfg)
-    x = params["embed"][tokens]
+    x = embed(params, tokens, cfg)
     dt = torch_dtype(cfg.dtype)
-    K, hd = cfg.n_kv_heads, cfg.hd
     caches = []
     for b in range(cfg.n_blocks):
         bp = block_at(params["blocks"], b)
@@ -363,23 +412,14 @@ def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None):
                 att = attention(lp["attn"], h, memory, cfg, causal=False,
                                 window=None, cap=None)
                 x = x + _gate(lp, x) * att
-                Sm = memory.shape[1]
-                mk = memory @ lp["attn"]["wk"]
-                mv = memory @ lp["attn"]["wv"]
-                cache[f"l{i}"] = {"k": mk.reshape(B, Sm, K, hd).to(dt),
-                                  "v": mv.reshape(B, Sm, K, hd).to(dt)}
+                mk, mv = cache_kv(lp["attn"], memory, cfg, bias=False)
+                cache[f"l{i}"] = {"k": mk.to(dt), "v": mv.to(dt)}
             else:
                 x = x + attention(lp["attn"], h, h, cfg, causal=True,
                                   window=sub.window, cap=sub.cap)
                 # re-project K/V into the ring cache layout
-                kf = h @ lp["attn"]["wk"]
-                vf = h @ lp["attn"]["wv"]
-                if cfg.qkv_bias:
-                    kf, vf = kf + lp["attn"]["bk"], vf + lp["attn"]["bv"]
-                kf = rope(kf.reshape(B, S, K, hd),
-                          torch.arange(S, dtype=torch.int32, device=x.device),
-                          cfg.rope_theta)
-                vf = vf.reshape(B, S, K, hd)
+                kf, vf = cache_kv(lp["attn"], h, cfg, positions=torch.arange(
+                    S, dtype=torch.int32, device=x.device))
                 # a full-attention sublayer with S > max_seq takes the ring
                 # branch too (Sc = max_seq), as in the reference
                 Sc = min(sub.window, max_seq) if sub.window else max_seq
@@ -395,15 +435,13 @@ def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None):
                     hx = rms_norm(x, lp["norm1x"], cfg.norm_eps)
                     x = x + attention(lp["xattn"], hx, memory, cfg,
                                       causal=False, window=None, cap=None)
-                    Sm = memory.shape[1]
-                    xk = memory @ lp["xattn"]["wk"]
-                    xv = memory @ lp["xattn"]["wv"]
-                    c["xk"] = xk.reshape(B, Sm, K, hd).to(dt)
-                    c["xv"] = xv.reshape(B, Sm, K, hd).to(dt)
+                    xk, xv = cache_kv(lp["xattn"], memory, cfg, bias=False)
+                    c["xk"] = xk.to(dt)
+                    c["xv"] = xv.to(dt)
                 cache[f"l{i}"] = c
             x = _ffn(x, lp, sub, cfg)
         caches.append(cache)
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = _logits(params, x, cfg)[:, 0]
+    logits = whole_logits(_logits(params, x, cfg)[:, 0], cfg)
     return logits, {"blocks": stack_blocks(caches),
                     "pos": torch.full((), S, dtype=torch.int32, device=x.device)}

@@ -102,21 +102,20 @@ def step_scalars(count, gnorm, cfg: AdamWConfig, lr_scale=1.0):
 
 
 @torch.no_grad()
-def update_leaf(p, g, m, v, clip, bc1, bc2, lr, cfg: AdamWConfig) -> None:
-    """One parameter leaf's AdamW update, written into ``p``, ``m`` and
-    ``v`` (fp32 tensors, or q8 dicts of the whole leaf)."""
+def moment_step(g, m, v, shape, clip, bc1, bc2, cfg: AdamWConfig) -> torch.Tensor:
+    """The moments of a leaf of ``shape`` advanced by its gradient ``g``
+    (written into ``m`` and ``v``: fp32 tensors, or q8 dicts of the whole
+    leaf), and the Adam step m^/(sqrt(v^) + eps) they give, in fp32."""
     b1, b2 = cfg.b1, cfg.b2
     g = g.float() * clip
     if cfg.quantized_moments:
-        mf = dequantize_q8(m, p.shape)
-        vf = dequantize_q8(v, p.shape)
+        mf = dequantize_q8(m, shape)
+        vf = dequantize_q8(v, shape)
     else:
         mf, vf = m, v
     mf = b1 * mf + (1 - b1) * g
     vf = b2 * vf + (1 - b2) * torch.square(g)
     step = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-    p32 = p.float()
-    p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
     if cfg.quantized_moments:
         for dst, src in ((m, quantize_q8(mf)), (v, quantize_q8(vf))):
             dst["q"].copy_(src["q"])
@@ -124,6 +123,21 @@ def update_leaf(p, g, m, v, clip, bc1, bc2, lr, cfg: AdamWConfig) -> None:
     else:
         m.copy_(mf)
         v.copy_(vf)
+    return step
+
+
+@torch.no_grad()
+def apply_step(p, step, lr, cfg: AdamWConfig) -> None:
+    """``p`` moved by the Adam ``step`` and the weight decay, in place."""
+    p32 = p.float()
+    p.copy_(p32 - lr * (step + cfg.weight_decay * p32))
+
+
+@torch.no_grad()
+def update_leaf(p, g, m, v, clip, bc1, bc2, lr, cfg: AdamWConfig) -> None:
+    """One parameter leaf's AdamW update, written into ``p``, ``m`` and
+    ``v`` (fp32 tensors, or q8 dicts of the whole leaf)."""
+    apply_step(p, moment_step(g, m, v, p.shape, clip, bc1, bc2, cfg), lr, cfg)
 
 
 def param_nodes(params, *trees) -> list[tuple]:

@@ -228,3 +228,184 @@ def serve_worker(rank, world, out_dir, jobs):
         if rank == 0:
             torch.save({"logits": d_logits, "cache": whole},
                        os.path.join(out_dir, f"{name}-decode.pt"))
+
+
+# ------------------------------------------------ tensor-parallel compute
+DECODE_STEPS = 4
+
+
+class WeightFlops:
+    """``with WeightFlops(weights) as wf: ...``: the flops of every op that
+    ``FlopCounterMode`` counts (its formula table), summed by the leaf whose
+    storage one of its operands views (``weights``: storage pointer ->
+    leaf path) into ``wf.flops``."""
+
+    def __init__(self, weights: dict):
+        from collections import Counter
+
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+
+        owner = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                formula = flop_registry.get(func._overloadpacket)
+                if formula is not None:
+                    hit = {weights.get(t.untyped_storage().data_ptr())
+                           for t in args if isinstance(t, torch.Tensor)} - {None}
+                    if hit:
+                        n = formula(*args, **(kwargs or {}), out_val=out)
+                        for k in hit:
+                            owner.flops[k] += n
+                return out
+
+        self.flops = Counter()
+        self._mode = Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def model_sharded(shardings) -> set:
+    """The paths of the leaves a sharding tree splits over ``model``."""
+    from repro_torch.tree import leaves_with_paths
+
+    return {p for p, s in leaves_with_paths(shardings)
+            if any("model" in (e if isinstance(e, tuple) else (e,)) for e in s.spec)}
+
+
+def serve_steps(cfg, mesh, placed, params_sharded=(), count_flops=False):
+    """The mesh prefill of a (BATCH, SEQ) batch and DECODE_STEPS decode steps
+    of fixed tokens against its cache, under the collective counter (and
+    the flop counter by ``params_sharded`` leaf); returns the prefill
+    logits, the decode logits, the cache, the counter and the flops."""
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.models.model import demo_batch
+    from repro_torch.train.mesh_step import (local, make_mesh_decode_step,
+                                             make_mesh_prefill_step)
+    from repro_torch.tree import leaves_with_paths
+
+    weights = {local(t).untyped_storage().data_ptr(): p
+               for p, t in leaves_with_paths(placed) if p in params_sharded}
+    batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
+    prefill = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ + DECODE_STEPS)
+    decode = make_mesh_decode_step(cfg, mesh)
+    with CollectiveCounter() as cc, WeightFlops(weights if count_flops else {}) as wf:
+        logits, cache = prefill(placed, batch)
+        steps = []
+        for i in range(DECODE_STEPS):
+            token = demo_batch(cfg, BATCH, 1, kind="decode", seed=2 + i, device="cpu")
+            d_logits, cache = decode(placed, cache, token)
+            steps.append(d_logits)
+    return logits, steps, cache, cc, dict(wf.flops)
+
+
+def tp_worker(rank, world, out_dir, name, cfg, shapes):
+    """For each ``(data, model)`` in ``shapes``: the parameters placed by
+    ``param_shardings``, :func:`serve_steps` with the flops of every
+    ``model``-sharded leaf counted, the gradients of one batch (each
+    replicated leaf's largest difference from the other ranks of its
+    ``model`` group), then two train steps of the state placed by
+    ``state_shardings``, under the collective counter. Every rank saves its
+    prefill logits, data index, flops, gathers over ``model`` and gradient
+    differences; rank 0 the decode logits, the cache, the losses and the
+    state, gathered."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import (dp_axes, param_shardings,
+                                                  place_tree, use_mesh)
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.mesh_step import (_dp_groups, _gather_data, _share,
+                                             make_mesh_train_step)
+    from repro_torch.train.state import make_abstract_state, state_shardings
+    from repro_torch.train.train_step import loss_and_grads
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    for shape in shapes:
+        tag = f"{name}-{shape[0]}x{shape[1]}"
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        group = mesh.get_group("model")
+        params = build_params(cfg, seed=0, device="cpu")
+        sh = param_shardings(params, mesh, cfg)
+        placed = place_tree(params, sh)
+        sharded = model_sharded(sh)
+        logits, steps, cache, cc, flops = serve_steps(cfg, mesh, placed, sharded,
+                                                      count_flops=True)
+        whole_cache = tree_map(lambda t: t.full_tensor().clone(), cache)
+
+        opt = AdamWConfig()
+        ssh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg)
+        state = place_tree(initial_state(cfg, opt), ssh)
+        first = batches(cfg, STEPS_TP)[0]
+        share, split = _share(first, mesh)
+        with use_mesh(mesh), layers.split_batch(_dp_groups(mesh) if split else []):
+            _, grads = loss_and_grads(tree_map(_gather_data, state["params"]), share, cfg)
+        spread = {}
+        for path, g in leaves_with_paths(grads):
+            if path not in sharded:
+                every = [torch.empty_like(g) for _ in range(dist.get_world_size(group))]
+                dist.all_gather(every, g.contiguous(), group=group)
+                spread[path] = max(float((e - g).abs().max()) for e in every)
+        step = make_mesh_train_step(cfg, opt, mesh, ssh)
+        losses = []
+        with CollectiveCounter() as tc:
+            for b in batches(cfg, STEPS_TP):
+                state, metrics = step(state, b)
+                losses.append(float(metrics["loss"]))
+        whole_state = tree_map(lambda t: t.full_tensor().clone(), state)
+        coord = mesh.get_coordinate()
+        names = list(mesh.mesh_dim_names)
+        mname = group.group_name
+        torch.save({"logits": logits, "dp_index": coord[names.index(dp_axes(mesh)[0])],
+                    "flops": flops, "spread": spread,
+                    "serve_gathers": [s for g, s in cc.gathered if g == mname],
+                    "train_gathers": [s for g, s in tc.gathered if g == mname],
+                    "model_calls": {k: n for (g, k), n in {**cc.by_group, **tc.by_group}.items()
+                                    if g == mname}},
+                   os.path.join(out_dir, f"{tag}-rank{rank}.pt"))
+        if rank == 0:
+            torch.save({"steps": steps, "cache": whole_cache, "losses": losses,
+                        "state": whole_state}, os.path.join(out_dir, f"{tag}.pt"))
+
+
+STEPS_TP = 2
+
+
+def tp_prefill_worker(rank, world, out_dir, cases, shape):
+    """For each ``(name, cfg, npz)``: the reference's parameters (``npz``
+    of its leaves by path) converted, placed on a ``(data, model)`` mesh
+    and prefilled as :func:`serve_steps` does; rank 0 saves the logits."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.convert import params_from_reference
+    from repro_torch.distributed.sharding import param_shardings, place_tree
+    from repro_torch.models.model import demo_batch
+    from repro_torch.train.mesh_step import make_mesh_prefill_step
+
+    for name, cfg, npz in cases:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        tree: dict = {}
+        with np.load(npz) as f:
+            for key in f.files:
+                node = tree
+                *parents, leaf = key.split("/")
+                for k in parents:
+                    node = node.setdefault(k, {})
+                node[leaf] = f[key]
+        params = params_from_reference(tree, device="cpu")
+        placed = place_tree(params, param_shardings(params, mesh, cfg))
+        batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
+        logits, _ = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ)(placed, batch)
+        if rank == 0:
+            torch.save(logits, os.path.join(out_dir, f"{name}-ref-prefill.pt"))

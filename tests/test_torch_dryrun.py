@@ -6,6 +6,13 @@
   equal what the same step issues on a real gloo (2, 2) run, kind by kind,
   in calls and bytes, counted by the same hook (qwen3-moe, so the MoE's
   routing gathers are in it; FSDP, and q8 moments).
+* At (1, 4), where the step is tensor-parallel over ``model``, the
+  dry-run's collectives equal a real gloo run's too, and its rank's flops
+  are the one-device step's with the share that is split over ``model``
+  divided by 4: for qwen3-moe (whole heads, experts, vocabulary-parallel
+  head and embedding) everything but the router, whose matmuls (forward,
+  remat's recompute and two in the backward, 2 T D E flops each) every
+  rank computes whole.
 * The mesh prefill and decode steps the dry-run traces for prefill and
   decode cells give, on a real gloo (2, 2) run, the one-device logits and
   cache within 1e-4 of the largest value (the whole-model bound of
@@ -46,6 +53,22 @@ def test_dryrun_collectives_are_a_real_runs(tmp_path):
         assert traced["collective_bytes_total"] == sum(real["bytes"].values()) > 0
         assert {"all-gather", "reduce-scatter" if not q8 else "all-reduce"} <= set(real["bytes"])
         assert traced["flops"] > 0 and traced["op_bytes"] > traced["flops"] / 1e3
+
+
+def test_dryrun_of_the_tensor_parallel_step(tmp_path):
+    jobs = [("tp", (1, 4), True, False, False, 1, True)]
+    out = run_ranks(4, train_worker, (CFG, jobs), tmp_path)
+    real = torch.load(os.path.join(out, "tp.pt"), weights_only=False)["counted"]
+    shape = ShapeConfig("smoke", SEQ, BATCH, "train")
+    traced = {m: dryrun.trace_step(CFG, shape, m,
+                                   lambda dt, m=m: make_host_mesh(1, m, device_type=dt))
+              for m in (1, 4)}
+    assert traced[4]["collective_calls"] == real["calls"]
+    assert traced[4]["collectives"] == real["bytes"]
+    assert real["calls"]["all-reduce"] > traced[1]["collective_calls"]["all-reduce"]
+    router = CFG.n_blocks * 4 * 2 * (BATCH * SEQ) * CFG.d_model * CFG.n_experts
+    assert traced[4]["flops"] == (traced[1]["flops"] - router) / 4 + router
+    assert traced[4]["argument_size_in_bytes"] < traced[1]["argument_size_in_bytes"] / 2
 
 
 def test_roofline_reads_the_dryrun_records(tmp_path):

@@ -57,6 +57,7 @@ TRAIN_MODULES = ("repro_torch.tree", "repro_torch.optim",
 #: roofline report (importing them starts no process group)
 DIST_MODULES = ("repro_torch.distributed", "repro_torch.distributed.sharding",
                 "repro_torch.distributed.compress", "repro_torch.distributed.comm",
+                "repro_torch.distributed.tp",
                 "repro_torch.launch.mesh", "repro_torch.train.mesh_step",
                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline")
 
