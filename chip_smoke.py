@@ -242,9 +242,19 @@ DIST_STEPS = 4  # full-width steps of train_lm --mesh 1,1, held to the train pha
 DIST_COMPRESS_CALLS = 3  # timed compressed_pmean calls over the full-width gradient tree
 DIST_SAMPLE_LEAVES = 3  # of its leaves, compressed again on gloo on the host
 TP_MESH = (1, 2)  # (data, model) of the dist phase's tensor-parallel ranks, both on the card
-#: their smoke configs (fp32), with the changes the CPU tests make
-TP_SMOKE = {"mamba2-780m": {}, "yi-9b": {"n_kv_heads": 2}, "qwen3-moe-30b-a3b": {},
-            "mixtral-8x22b": {}, "whisper-medium": {}}
+#: their smoke configs (fp32): name -> (arch, the changes the CPU tests make); the
+#: last three attend on a rank's query heads (H divides over model, K does not)
+#: and on its half of the queries (H does not divide; H = K in qwen1.5's)
+TP_SMOKE = {"mamba2-780m": ("mamba2-780m", {}), "yi-9b": ("yi-9b", {"n_kv_heads": 2}),
+            "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}),
+            "mixtral-8x22b": ("mixtral-8x22b", {}), "whisper-medium": ("whisper-medium", {}),
+            "yi-9b-kv1": ("yi-9b", {"n_kv_heads": 1}),
+            "gemma2-2b-h3": ("gemma2-2b", {"n_heads": 3, "n_kv_heads": 1}),
+            "qwen1.5-4b-h3": ("qwen1.5-4b", {"n_heads": 3, "n_kv_heads": 3})}
+TP_MESH_DP = (2, 2)  # four more ranks on the card, started with those two
+#: their smoke config: 3 experts, which do not divide over model, so the MoE
+#: capacity slots split over data
+TP_SMOKE_DP = {"mixtral-8x22b-e3": ("mixtral-8x22b", {"n_experts": 3})}
 TP_BATCH, TP_SEQ = 4, 16  # their prefill batch; the cache holds TP_SEQ + TP_DECODE
 TP_DECODE = 4  # decode steps after each prefill
 TP_TRAIN_STEPS = 2  # train steps from step 50
@@ -2456,14 +2466,14 @@ def main() -> int:
     # -------------------------------------------------------------- 10. train
     # the training launcher: the smoke configs' steps card against host,
     # resume and preemption in child processes, mamba2-780m at full width
-    # the dist phase's two tensor-parallel ranks start here, beside the
+    # the dist phase's six tensor-parallel ranks start here, beside the
     # train phase's own children; its timed full-width run waits for them
     ranks = start_tp_ranks(dev, lm["fp32_card"])
     trained = train_phase(card, dev, counts, lm.pop("host"), dry, ranks["procs"])
     # --------------------------------------------------------------- 11. dist
     # the distributed layer: a one-rank NCCL group, compressed_pmean over the
     # full-width gradients, train_lm --mesh 1,1, a checkpoint on the mesh,
-    # and the two tensor-parallel ranks of a (1, 2) mesh on gloo
+    # and the tensor-parallel ranks of a (1, 2) and a (2, 2) mesh on gloo
     dist_phase(card, dev, counts, trained, lm["fp32_card"], ranks)
     kernels = []
     for name, source, replaces in (
@@ -4102,11 +4112,14 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
     leaves compressed again on a one-rank gloo group on the host: equal to
     the card's means and error feedback within one int8 step of the second
     scale (the elements that differ counted); (e) two ranks of a
-    ``TP_MESH`` = (1, 2) mesh on the one card (``--tp-rank`` children, started
-    together by :func:`start_tp_ranks` before the train phase, or here
-    when ``ranks`` is None, meeting over gloo with CUDA tensors, since NCCL
+    ``TP_MESH`` = (1, 2) mesh and four of a ``TP_MESH_DP`` = (2, 2) mesh on
+    the one card (``--tp-rank`` children, started together by
+    :func:`start_tp_ranks` before the train phase, or here when ``ranks``
+    is None, each group meeting over gloo with CUDA tensors, since NCCL
     takes one rank a device), tensor-parallel over ``model``: the
-    ``TP_SMOKE`` configs in fp32 (TF32 off), the mesh prefill, ``TP_DECODE``
+    ``TP_SMOKE`` configs (among them attention on a rank's query heads and
+    on its queries) and the ``TP_SMOKE_DP`` one (MoE capacity slots split
+    over ``data``) in fp32 (TF32 off), the mesh prefill, ``TP_DECODE``
     decode steps and ``TP_TRAIN_STEPS`` train steps held to the card's
     one-device run within ``TP_TOL`` (:func:`tp_reference`), and mamba2-780m
     at full width in fp32 (48 SSM heads, 24 a rank) over the lm phase's
@@ -4273,23 +4286,25 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
         counts.end("dist", [])  # the one-device runs launch no kernel of the port
         ref_s = time.perf_counter() - t0
         deadline = ranks["t0"] + TP_CHILD_S
-        for r, proc in enumerate(procs):
-            try:
-                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"dist: tensor-parallel rank {r} still running "
-                                     f"after {TP_CHILD_S} s") from None
-        ranks_s = max(ranks["ended"].get(r, time.perf_counter()) for r in range(len(procs))) \
-            - ranks["t0"]
-        for r, proc in enumerate(procs):
-            if proc.returncode != 0:
-                with open(os.path.join(tp_dir, f"rank{r}.log")) as f:
-                    tail = f.read()[-3000:]
-                raise AssertionError(f"dist: tensor-parallel rank {r} exited "
-                                     f"{proc.returncode}: {tail}")
-        got = [torch.load(os.path.join(tp_dir, f"rank{r}.pt"), weights_only=False)
-               for r in range(len(procs))]
-        tp_check(card, got, want, fp32_card, ref_s, ranks_s)
+        for mesh, out_dir, which in ranks["groups"]:
+            for r, i in enumerate(which):
+                try:
+                    procs[i].wait(timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    raise AssertionError(f"dist: tensor-parallel rank {r} of {mesh} still "
+                                         f"running after {TP_CHILD_S} s") from None
+            ranks_s = max(ranks["ended"].get(i, time.perf_counter()) for i in which) \
+                - ranks["t0"]
+            for r, i in enumerate(which):
+                if procs[i].returncode != 0:
+                    with open(os.path.join(out_dir, f"rank{r}.log")) as f:
+                        tail = f.read()[-3000:]
+                    raise AssertionError(f"dist: tensor-parallel rank {r} of {mesh} exited "
+                                         f"{procs[i].returncode}: {tail}")
+            got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                   for r in range(len(which))]
+            tp_check(card, mesh, got, want, fp32_card if mesh == TP_MESH else None,
+                     ref_s, ranks_s)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -4302,28 +4317,36 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
 
 
 def start_tp_ranks(dev: torch.device, fp32_card: dict | None) -> dict:
-    """Start the dist phase's ``TP_MESH`` ranks together (``chip_smoke.py
-    --tp-rank``, output to a log each), with the lm phase's prompt batch
-    and ids (``fp32_card``) saved for them; killed at exit if still
-    running. Returns their directory, processes and start time, and a map
-    that a watcher thread fills with each one's end time."""
+    """Start the dist phase's tensor-parallel ranks together, the
+    ``TP_MESH`` group's and the ``TP_MESH_DP`` group's (``chip_smoke.py
+    --tp-rank``, a gloo group each at its own port, output to a log each),
+    with the lm phase's prompt batch and ids (``fp32_card``) saved for the
+    ``TP_MESH`` ranks; killed at exit if still running. Returns the
+    directory (a subdirectory a group), the processes and their start time,
+    and a map that a watcher thread fills with each one's end time."""
     import atexit
 
     from repro_torch.launch.mesh import free_port
 
     tp_dir = tempfile.mkdtemp(prefix="chip-smoke-tp-")
-    if fp32_card is not None:
-        torch.save({k: fp32_card[k] for k in ("tokens", "ids", "max_seq")},
-                   os.path.join(tp_dir, "inputs.pt"))
-    port = free_port()
     t0 = time.perf_counter()
-    procs = []
-    for r in range(TP_MESH[0] * TP_MESH[1]):
-        with open(os.path.join(tp_dir, f"rank{r}.log"), "w") as f:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), str(port),
-                 tp_dir, dev.type], stdout=f, stderr=subprocess.STDOUT,
-                env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}))
+    procs, groups = [], []
+    for mesh in (TP_MESH, TP_MESH_DP):
+        out = os.path.join(tp_dir, "x".join(map(str, mesh)))
+        os.makedirs(out)
+        if fp32_card is not None and mesh == TP_MESH:
+            torch.save({k: fp32_card[k] for k in ("tokens", "ids", "max_seq")},
+                       os.path.join(out, "inputs.pt"))
+        port = free_port()
+        first = len(procs)
+        for r in range(mesh[0] * mesh[1]):
+            with open(os.path.join(out, f"rank{r}.log"), "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                     str(port), out, dev.type, f"{mesh[0]},{mesh[1]}"], stdout=f,
+                    stderr=subprocess.STDOUT,
+                    env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}))
+        groups.append((mesh, out, list(range(first, len(procs)))))
     ended: dict = {}
 
     def watch():
@@ -4333,16 +4356,33 @@ def start_tp_ranks(dev: torch.device, fp32_card: dict | None) -> dict:
 
     threading.Thread(target=watch, daemon=True).start()
     atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
-    return {"dir": tp_dir, "procs": procs, "t0": t0, "ended": ended}
+    return {"dir": tp_dir, "groups": groups, "procs": procs, "t0": t0, "ended": ended}
 
 
-def _tp_cut(t: torch.Tensor, spec: tuple, rank: int, m: int) -> torch.Tensor:
-    """The part of ``t`` that the rank at index ``rank`` of ``m`` on
-    ``model`` holds under ``spec`` (a mesh whose data axis has one rank)."""
+def _tp_at(rank: int, mesh: tuple) -> dict:
+    """The (data, model) coordinates of global rank ``rank`` of a
+    ``(data, model)`` mesh (row-major, as ``init_device_mesh`` lays it)."""
+    return {"data": rank // mesh[1], "model": rank % mesh[1]}
+
+
+def _tp_cut(t: torch.Tensor, spec: tuple, at: dict, mesh: tuple) -> torch.Tensor:
+    """The part of ``t`` that the rank at coordinates ``at`` of a ``(data,
+    model)`` ``mesh`` holds under ``spec`` (a dim over several axes split
+    data-major)."""
+    sizes = {"data": mesh[0], "model": mesh[1]}
     for d, entry in enumerate(spec):
-        if "model" in (entry if isinstance(entry, tuple) else (entry,)):
-            t = t.chunk(m, d)[rank]
+        axes = [a for a in (entry if isinstance(entry, tuple) else (entry,)) if a]
+        if axes:
+            n, i = 1, 0
+            for a in axes:
+                n, i = n * sizes[a], i * sizes[a] + at[a]
+            t = t.chunk(n, d)[i]
     return t
+
+
+def _tp_cases(mesh: tuple) -> dict:
+    """The smoke configs the ranks of ``mesh`` run."""
+    return TP_SMOKE if tuple(mesh) == TP_MESH else TP_SMOKE_DP
 
 
 def _tp_cfg(name: str):
@@ -4350,17 +4390,19 @@ def _tp_cfg(name: str):
 
     from repro_torch.configs import REGISTRY
 
-    return replace(REGISTRY[name].smoke(), dtype="float32", **TP_SMOKE[name])
+    arch, changes = {**TP_SMOKE, **TP_SMOKE_DP}[name]
+    return replace(REGISTRY[arch].smoke(), dtype="float32", **changes)
 
 
 def tp_reference(dev: torch.device, max_seq: int) -> dict:
     """The one-device card run (fp32, TF32 off) that the dist phase's
-    tensor-parallel ranks are held to: for each ``TP_SMOKE`` config, the
+    tensor-parallel ranks are held to: for each ``TP_SMOKE`` and
+    ``TP_SMOKE_DP`` config, the
     prefill and decode logits, the train steps' losses and state (on the
     host), each parameter's allowance (lr x the change of each step for a
     gradient change of ``TP_TOL`` of the leaf's largest gradient: Adam
     divides every entry by its own magnitude, as the CPU tests allow) and
-    the state's shardings on a ``TP_MESH``; and, on ``meta`` tensors,
+    the state's shardings on its ranks' mesh; and, on ``meta`` tensors,
     mamba2-780m's full-width fp32 parameter bytes and the matmul flops of
     one decode step of the lm phase's prompt batch (5 rows, a cache of
     ``max_seq``)."""
@@ -4377,13 +4419,12 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     from repro_torch.train.train_step import loss_and_grads, make_train_step
     from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
-    mesh = {"data": TP_MESH[0], "model": TP_MESH[1]}
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out: dict = {}
     try:
-        for name in TP_SMOKE:
+        for mesh, name in [(m, n) for m in (TP_MESH, TP_MESH_DP) for n in _tp_cases(m)]:
             cfg = _tp_cfg(name)
             opt = AdamWConfig()
             state = make_state(cfg, opt, seed=0, device=dev)
@@ -4429,7 +4470,8 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
             out[name] = {"logits": logits.cpu(), "steps": steps, "losses": losses,
                          "state": tree_map(lambda t: t.cpu(), state),
                          "allowance": allowance,
-                         "shardings": state_shardings(make_abstract_state(cfg, opt), mesh,
+                         "shardings": state_shardings(make_abstract_state(cfg, opt),
+                                                      {"data": mesh[0], "model": mesh[1]},
                                                       cfg)}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -4444,29 +4486,34 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     return out
 
 
-def tp_check(card: str, got: list, want: dict, fp32_card: dict | None,
+def tp_check(card: str, mesh: tuple, got: list, want: dict, fp32_card: dict | None,
              ref_s: float, ranks_s: float) -> None:
-    """Hold each tensor-parallel rank's results (:func:`tp_rank`) to the
-    one-device run's (:func:`tp_reference`, and the lm phase's full-width
-    card logits), and log them; every check raises."""
+    """Hold each tensor-parallel rank of ``mesh`` (its results from
+    :func:`tp_rank`) to the one-device run's (:func:`tp_reference`, and the
+    lm phase's full-width card logits): its prefill logits to its data
+    share's rows, the decode logits, the losses and its shard of every
+    leaf of the state; log them. Every check raises."""
     from repro_torch.tree import leaves_with_paths
 
-    m = TP_MESH[1]
+    m = mesh[1]
+    rows = TP_BATCH // mesh[0]
 
     def rel(a: torch.Tensor, b: torch.Tensor) -> float:
         return float((a.double() - b.double()).abs().max() / b.double().abs().max())
 
     worst, calls = {}, 0
-    for name in TP_SMOKE:
+    for name in _tp_cases(mesh):
         w = want[name]
         errs = []
         for r, rank in enumerate(got):
+            at = _tp_at(r, mesh)
             g = rank["smoke"][name]
             if g["bad"]:
                 raise AssertionError(f"dist: rank {r} gathered model-sharded leaves of "
                                      f"{name} over model: {g['bad'][:3]}")
             calls += g["model_calls"]
-            for what, a, b in [("prefill", g["logits"], w["logits"])] + [
+            share = w["logits"][at["data"] * rows:(at["data"] + 1) * rows]
+            for what, a, b in [("prefill", g["logits"], share)] + [
                     (f"decode {i + 1}", x, y) for i, (x, y) in enumerate(zip(g["steps"],
                                                                            w["steps"]))]:
                 errs.append(rel(a, b))
@@ -4481,7 +4528,7 @@ def tp_check(card: str, got: list, want: dict, fp32_card: dict | None,
             mine = dict(leaves_with_paths(g["state"]))
             allow = w["allowance"]
             for path, whole in leaves_with_paths(w["state"]):
-                part = _tp_cut(whole, specs[path].spec, r, m)
+                part = _tp_cut(whole, specs[path].spec, at, mesh)
                 a = mine[path]
                 if a.shape != part.shape or a.dtype != part.dtype:
                     raise AssertionError(f"dist: {name} rank {r} {path}: {tuple(a.shape)} "
@@ -4489,22 +4536,28 @@ def tp_check(card: str, got: list, want: dict, fp32_card: dict | None,
                 diff = (a.double() - part.double()).abs()
                 key = path.removeprefix("params/")
                 if path.startswith("params/"):
-                    diff = diff - _tp_cut(allow[key], specs[path].spec, r, m) * (1 + 1e-6)
+                    diff = diff - _tp_cut(allow[key], specs[path].spec, at, mesh) * (1 + 1e-6)
                 bound = TP_TOL * max(float(whole.double().abs().max()), 1e-30)
                 if float(diff.max()) > bound:
                     raise AssertionError(f"dist: {name} rank {r} {path} after "
                                          f"{TP_TRAIN_STEPS} steps: {float(diff.max()):.3e} "
                                          f"> {bound:.3e}")
         worst[name] = max(errs)
-    log("dist", f"[{card}] (e) two ranks of a {TP_MESH} mesh on the card, tensor-parallel "
-        f"over model, meeting over gloo with CUDA tensors; {len(TP_SMOKE)} smoke configs in "
-        f"fp32 (TF32 off): prefill ({TP_BATCH}, {TP_SEQ}), {TP_DECODE} decode steps and "
+    # the capacity split's dispatch and return are all-to-alls over data
+    a2a = [rank["smoke"][n]["data_all_to_all"] for rank in got for n in _tp_cases(mesh)]
+    if tuple(mesh) == TP_MESH_DP and not all(a2a):
+        raise AssertionError(f"dist: ranks of {mesh} made {a2a} all-to-alls over data: "
+                             "the MoE capacity did not split")
+    log("dist", f"[{card}] (e) {len(got)} ranks of a {mesh} mesh on the card, tensor-parallel "
+        f"over model, meeting over gloo with CUDA tensors; {len(_tp_cases(mesh))} smoke configs "
+        f"in fp32 (TF32 off): prefill ({TP_BATCH}, {TP_SEQ}), {TP_DECODE} decode steps and "
         f"{TP_TRAIN_STEPS} train steps from step 50 == the card's one-device run within "
         f"{TP_TOL} (logits per rank, the losses, and every parameter and moment shard, "
         f"beyond each step's Adam allowance); worst logit error per arch: "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
         + f"; no model-sharded leaf gathered over model; {calls} collectives over model "
-        f"in all; the one-device runs {ref_s:.1f} s, the ranks {ranks_s:.1f} s from their "
+        f"in all{f', all-to-alls over data a rank {a2a}' if tuple(mesh) == TP_MESH_DP else ''}"
+        f"; the one-device runs {ref_s:.1f} s, the ranks {ranks_s:.1f} s from their "
         f"start (each: {', '.join(str(x['times']) for x in got)})")
     if fp32_card is None:
         return
@@ -4536,15 +4589,17 @@ def tp_check(card: str, got: list, want: dict, fp32_card: dict | None,
         f"{sum(x['full']['model_calls'] for x in got)} collectives over model")
 
 
-def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda") -> int:
-    """``chip_smoke.py --tp-rank RANK PORT DIR [DEVICE]``: one of the dist phase's
-    tensor-parallel ranks, on the card, in a gloo group of
-    ``TP_MESH``'s ranks at ``localhost:PORT``: the ``TP_SMOKE`` configs'
-    mesh prefill, decode and train steps, and, where ``DIR/inputs.pt``
-    holds the lm phase's prompt batch, mamba2-780m at full width in fp32
-    over it (one decode step under ``FlopCounterMode``), under the
-    collective counter; writes ``DIR/rank{RANK}.pt``. (``device_type``
-    ``"cpu"`` runs it on the host, for a rehearsal.)"""
+def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
+            mesh_arg: str = "1,2") -> int:
+    """``chip_smoke.py --tp-rank RANK PORT DIR [DEVICE [D,M]]``: one of the
+    dist phase's tensor-parallel ranks, on the card, in a gloo group of the
+    ranks of a (D, M) mesh (``TP_MESH`` or ``TP_MESH_DP``) at
+    ``localhost:PORT``: its smoke configs' (``_tp_cases``) mesh prefill,
+    decode and train steps, and, where ``DIR/inputs.pt`` holds the lm
+    phase's prompt batch, mamba2-780m at full width in fp32 over it (one
+    decode step under ``FlopCounterMode``), under the collective counter;
+    writes ``DIR/rank{RANK}.pt``. (``device_type`` ``"cpu"`` runs it on the
+    host, for a rehearsal.)"""
     if device_type == "cuda" and not torch.cuda.is_available():
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4572,18 +4627,19 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda") -> in
     dev = torch.device(device_type, 0)
     if device_type == "cuda":
         torch.cuda.set_device(dev)
-    m = TP_MESH[1]
+    shape = tuple(int(x) for x in mesh_arg.split(","))
     tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                             world_size=TP_MESH[0] * TP_MESH[1])
+                             world_size=shape[0] * shape[1])
     try:
-        mesh = init_device_mesh(device_type, TP_MESH, mesh_dim_names=("data", "model"))
+        mesh = init_device_mesh(device_type, shape, mesh_dim_names=("data", "model"))
         group = mesh.get_group("model").group_name
-        idx = mesh.get_local_rank("model")
+        data_group = mesh.get_group("data").group_name
+        at = {"data": mesh.get_local_rank("data"), "model": mesh.get_local_rank("model")}
 
         def place(tree, shardings):
             """The rank's shards, cut on the host and moved to the card."""
             return tree_map(lambda t, s: DTensor.from_local(
-                _tp_cut(t, s.spec, idx, m).to(dev), mesh, list(s.placements()),
+                _tp_cut(t, s.spec, at, shape).to(dev), mesh, list(s.placements()),
                 run_check=False), tree, shardings)
 
         def forbidden(tree, shardings) -> set:
@@ -4600,10 +4656,14 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda") -> in
             return {"bad": [s for c in counters for g, s in c.gathered
                             if g == group and s in bad_shapes],
                     "model_calls": sum(n for c in counters for (g, _), n in c.by_group.items()
-                                       if g == group)}
+                                       if g == group),
+                    "data_all_to_all": sum(n for c in counters
+                                           for (g, k), n in c.by_group.items()
+                                           if g == data_group and k == "all-to-all")}
 
         results: dict = {"smoke": {}, "times": {}}
         inputs = os.path.join(out_dir, "inputs.pt")
+        results["at"] = at
         full_cfg = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE, dtype="float32")
         drawn: dict = {}
         # the full-width weights are drawn on the host while the smoke
@@ -4613,7 +4673,7 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda") -> in
         if os.path.exists(inputs):
             draw.start()
         t0 = time.perf_counter()
-        for name in TP_SMOKE:
+        for name in _tp_cases(shape):
             cfg = _tp_cfg(name)
             opt = AdamWConfig()
             whole = make_state(cfg, opt, seed=0, device="cpu")
@@ -4948,7 +5008,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dryrun-probe"]:
         sys.exit(dryrun_probe())
     if sys.argv[1:2] == ["--tp-rank"]:
-        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *sys.argv[5:6]))
+        sys.exit(tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *sys.argv[5:7]))
     if sys.argv[1:2] == ["--cluster-probe"]:
         sys.exit(cluster_probe())
     sys.exit(main())

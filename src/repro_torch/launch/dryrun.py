@@ -31,9 +31,14 @@ the other XLA memory-analysis fields: nothing is lowered or compiled, and
 ``launch/hlo_analysis.py``, which reads XLA's HLO text, stays with the
 reference. The step is tensor-parallel over ``model`` as the rules place
 the weights, so a rank's flops are its data-parallel share's with what is
-split over ``model`` divided by the axis (attention whose heads do not
-divide, the MoE router and the replicated leaves stay whole on every
-rank), and its collectives include the ``model`` axis's all-reduces.
+split over ``model`` divided by the axis: attention by query heads, or by
+queries where the heads do not divide (on one block of queries), and MoE
+experts by expert or hidden column, with their capacity slots split over
+``data`` where the experts do not divide. The MoE router, the replicated
+leaves and attention over more than one block of queries whose heads do
+not divide stay whole on every rank. The collectives include the
+``model`` axis's all-reduces and all-to-alls and the capacity's
+all-to-alls over ``data``.
 
 The roofline constants are the card's, not the reference's TPU's:
 NVIDIA's data sheet for the NVIDIA H100 80GB HBM3 (SXM) at its 700.00 W

@@ -18,12 +18,12 @@ narrower leaf is a shard). The layers then compute on their shards as the
 rules place them and issue the collectives of
 :mod:`repro_torch.distributed.tp`: column-parallel ``wq``/``wk``/``wv``,
 ``w_gate``/``w_up`` and row-parallel ``wo``/``w_down`` with one all-reduce
-after each row block; attention on the rank's heads where its column
-blocks hold whole query heads and the KV heads they read, else on every
-head of q/k/v gathered over ``model``; experts split over ``model`` (EP)
-or each expert's hidden width split; decode against a cache whose
-head_dim lies over ``model`` (``cache_specs_tree``), the scores' partial
-sums all-reduced.
+after each row block; attention on the rank's query heads (against the KV
+heads they read) where H divides, else on the rank's share of the query
+sequence with every head (:func:`_layout`); experts split over ``model``
+(EP) or each expert's hidden width split, and then their capacity slots
+split over ``data``; decode against a cache whose head_dim lies over
+``model`` (``cache_specs_tree``), the scores' partial sums all-reduced.
 
 Attention is *query-chunked*: scores are materialised one (chunk_q, S) slab
 at a time (a Python loop over query blocks), O(S·chunk) live memory instead
@@ -239,11 +239,40 @@ def _qkv(params, x, kv_x, cfg, g):
     return q, k, v, sq, skv
 
 
-def _whole_heads(cfg, sq: bool, skv: bool, g) -> bool:
-    """Whether the rank's column blocks hold whole query heads and the KV
-    heads those read (both head counts divide over ``model``)."""
+def _layout(cfg, sq: bool, skv: bool, Sq: int, chunk_q: int, g) -> str:
+    """How a rank of the ``model`` group ``g`` shares attention's work, by
+    the reference's rules (``src/repro/models/layers.py`` ``attention``):
+
+    * ``"heads"``: H and K divide over ``model``; the rank's column blocks
+      hold its whole query heads and the KV heads they read;
+    * ``"query"``: H divides and K does not (GQA); the rank attends with its
+      query heads against the KV heads they read, K/V built whole;
+    * ``"seq"``: H does not divide (H = K too); on the single-block path
+      with Sq a multiple of the axis and longer than it, the rank attends
+      its Sq/m queries with every head, K/V built whole;
+    * ``"whole"``: anything else (no ``model`` axis, or Sq that cannot be
+      split); q/k/v gathered, every head on every rank."""
+    if g is None or not sq:
+        return "whole"
     m = tp.size(g)
-    return sq and skv and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    if cfg.n_heads % m == 0:
+        return "heads" if skv and cfg.n_kv_heads % m == 0 else "query"
+    if Sq <= chunk_q and Sq % m == 0 and Sq > m:
+        return "seq"
+    return "whole"
+
+
+def _shared(t: torch.Tensor, split: bool, g) -> torch.Tensor:
+    """K or V whole on every rank of ``g`` (gathered where ``split``), for
+    work each rank does differently: its gradient is summed over ``g``
+    before the rank's columns are cut from it."""
+    return tp.copy(tp.gather(t, -1, g) if split else t, g)
+
+
+def _kv_for(k: torch.Tensor, h0: int, n: int, rep: int) -> torch.Tensor:
+    """The KV head (dim 2 of ``k``) that each of query heads ``h0 .. h0 +
+    n - 1`` reads (head h reads h // rep), one for each query head."""
+    return k.index_select(2, torch.arange(h0, h0 + n, device=k.device) // rep)
 
 
 def out_proj(out, wo, g, rows: bool) -> torch.Tensor:
@@ -265,43 +294,57 @@ def attention(params, x, kv_x, cfg, *, causal: bool, window: int | None,
     x: (B, Sq, D) queries source; kv_x: (B, Sk, D) keys/values source
     (kv_x is x for self-attention, encoder/vision memory for cross).
     q_offset: absolute position of x[0] (decode/prefill continuation).
-    Under a ``model`` axis the rank attends with its own heads where its
-    column blocks hold whole heads, else with every head of q/k/v gathered.
+    Under a ``model`` axis each rank does its share as :func:`_layout`
+    says, and its output is the rank's rows of the row-parallel ``wo``.
     """
     B, Sq, D = x.shape
     Sk = kv_x.shape[1]
-    hd = cfg.hd
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = model_group()
     q, k, v, sq, skv = _qkv(params, x, kv_x, cfg, g)
-    local = _whole_heads(cfg, sq, skv, g)
-    if not local:
+    if chunk_q is None:
+        # one block up to 8k queries, 1k-query chunks beyond
+        chunk_q = Sq if Sq <= 8192 else 1024
+    layout = _layout(cfg, sq, skv, Sq, chunk_q, g)
+    q0 = 0                               # the rank's first query
+    if layout == "whole":
         q = tp.gather(q, -1, g) if sq else q
         k, v = (tp.gather(k, -1, g), tp.gather(v, -1, g)) if skv else (k, v)
-    H, K = q.shape[-1] // hd, k.shape[-1] // hd
-    q = q.reshape(B, Sq, H, hd)
-    k = k.reshape(B, Sk, K, hd)
-    v = v.reshape(B, Sk, K, hd)
-    qpos = q_offset + torch.arange(Sq, dtype=torch.int32, device=x.device)
+    elif layout == "query":
+        k, v = _shared(k, skv, g), _shared(v, skv, g)
+    elif layout == "seq":
+        # the column block over every query -> every column over Sq/m
+        q = tp.all_to_all(q, 1, -1, g)
+        k, v = _shared(k, skv, g), _shared(v, skv, g)
+        q0 = tp.rank(g) * q.shape[1]
+    Sl = q.shape[1]
+    q = q.reshape(B, Sl, q.shape[-1] // hd, hd)
+    k = k.reshape(B, Sk, k.shape[-1] // hd, hd)
+    v = v.reshape(B, Sk, v.shape[-1] // hd, hd)
+    qpos = q_offset + q0 + torch.arange(Sl, dtype=torch.int32, device=x.device)
     kpos = (positions_k if positions_k is not None
             else torch.arange(Sk, dtype=torch.int32, device=x.device))
     if causal:  # RoPE only on self-attention paths
         q = rope(q, qpos, cfg.rope_theta)
         k = rope(k, kpos, cfg.rope_theta)
-    if chunk_q is None:
-        # one block up to 8k queries, 1k-query chunks beyond
-        chunk_q = Sq if Sq <= 8192 else 1024
-    if Sq % chunk_q != 0:
+    if layout == "query":                # the KV heads the rank's heads read
+        Hl = q.shape[2]
+        k, v = (_kv_for(t, tp.rank(g) * Hl, Hl, H // K) for t in (k, v))
+    if Sl % chunk_q != 0:
         # non-multiple sequence (e.g. whisper's 1500 frames): largest
         # divisor <= chunk_q keeps the chunks exact without padding
-        chunk_q = next(c for c in range(min(chunk_q, Sq), 0, -1) if Sq % c == 0)
-    if Sq <= chunk_q:
+        chunk_q = next(c for c in range(min(chunk_q, Sl), 0, -1) if Sl % c == 0)
+    if Sl <= chunk_q:
         out = _attend_block(q, k, v, qpos, kpos, causal, window, cap)
     else:
         out = torch.cat([_attend_block(q[:, c0 : c0 + chunk_q], k, v,
                                        qpos[c0 : c0 + chunk_q], kpos, causal,
                                        window, cap)
-                         for c0 in range(0, Sq, chunk_q)], dim=1)
-    return out_proj(out.reshape(B, Sq, H * hd), params["wo"], g, local)
+                         for c0 in range(0, Sl, chunk_q)], dim=1)
+    out = out.reshape(B, Sl, -1)
+    if layout == "seq":                  # back to the column block over Sq
+        out = tp.all_to_all(out, -1, 1, g)
+    return out_proj(out, params["wo"], g, layout != "whole")
 
 
 def cache_kv(params, src, cfg, positions=None, bias: bool | None = None):
@@ -449,6 +492,40 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _capacity_group(E: int, C: int):
+    """The ``data`` group over which ``moe`` splits its C capacity slots,
+    or None: under a batch split over ``data`` (and no ``pod`` axis of more
+    than one rank), where the experts do not divide over ``model`` and C
+    divides over ``data`` (the reference's ``cap_ax``)."""
+    groups = _SPLIT_CTX[0]
+    d = _mesh_axis_size("data")
+    if (not groups or d == 1 or _mesh_axis_size("pod") > 1
+            or E % _mesh_axis_size("model") == 0 or C % d):
+        return None
+    return groups[-1]                    # the innermost axis: data
+
+
+def _dispatch(eb: torch.Tensor, group) -> torch.Tensor:
+    """The rank's block of capacity slots (El, C/d, D) of every data rank's
+    buffer (El, C, D): the buffers cut along C and exchanged, the d blocks
+    received summed (each slot is filled on one rank only, so the sum is
+    exact)."""
+    d = tp.size(group)
+    El, C, D = eb.shape
+    parts = eb.reshape(El, d, C // d, D).transpose(0, 1)      # (d, El, C/d, D)
+    return tp.all_to_all(parts, 0, 0, group).sum(0)
+
+
+def _collect(out_e: torch.Tensor, group) -> torch.Tensor:
+    """Every data rank's block (El, C/d, D) as the whole (El, C, D): d copies
+    of the rank's block sent, one to each rank, so that the gradient of each
+    rank's reading comes back to the block's owner and is summed there."""
+    d = tp.size(group)
+    El, Cd, D = out_e.shape
+    got = tp.all_to_all(out_e.unsqueeze(0).expand(d, El, Cd, D), 0, 0, group)
+    return got.transpose(0, 1).reshape(El, d * Cd, D)
+
+
 def moe(params, x, cfg) -> torch.Tensor:
     """Capacity-bucketed top-k MoE (GShard-style, scatter/gather form).
 
@@ -461,7 +538,11 @@ def moe(params, x, cfg) -> torch.Tensor:
     Under a ``model`` axis every rank of a ``model`` group routes the same
     tokens; it runs its block of experts where they are split over
     ``model`` (E divides), else every expert on its columns of the hidden
-    width, and the combined output is summed over ``model``.
+    width, and the combined output is summed over ``model``. Where the
+    experts do not divide and C divides over ``data`` (``_capacity_group``),
+    data rank r runs the experts on slots [r C/d, (r+1) C/d) only: the
+    buffers go to the slots' ranks by an all-to-all over ``data``
+    (``_dispatch``), and the outputs come back by another (``_collect``).
     """
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -523,9 +604,14 @@ def moe(params, x, cfg) -> torch.Tensor:
         buf = torch.zeros((El, C + 1, D), dtype=x.dtype, device=dev)
         buf[own_expert, own_slot] = src
         eb = buf[:, :C]
+    cap = _capacity_group(E, C)
+    if cap is not None:
+        eb = _dispatch(eb, cap)                               # (El, C/d, D)
     h = F.silu(torch.bmm(eb, params["w_gate"]))
     h = h * torch.bmm(eb, params["w_up"])
-    out_e = torch.bmm(h, params["w_down"])                    # (El, C, D)
+    out_e = torch.bmm(h, params["w_down"])                    # as eb
+    if cap is not None:
+        out_e = _collect(out_e, cap)                          # (El, C, D)
     gathered = out_e[own_expert, torch.clamp(slot, max=C - 1)]  # (T*K, D)
     gathered = gathered.masked_fill(~mine[:, None], 0.0)
     weighted = gathered * gate_vals.reshape(-1)[:, None].to(x.dtype)

@@ -22,7 +22,8 @@ The train step (:func:`make_mesh_train_step`) on every rank:
    over the whole batch (:func:`~repro_torch.models.layers.split_batch`);
 4. averages the gradients over the data axes straight into each moment
    leaf's placement (a reduce-scatter into the ZeRO shard, DTensor's
-   ``Partial`` -> ``Shard``), and the loss over the same ranks;
+   ``Partial`` -> ``Shard``; a ``c10d`` all-reduce where the moment is
+   replicated over them), and the loss over the same ranks;
 5. clips by the global norm (one all-reduce of the leaves' sums of squares)
    and updates each rank's shards with AdamW; a moment shard finer than
    its parameter's placement updates that slice of the parameter, and the
@@ -36,10 +37,13 @@ The train step (:func:`make_mesh_train_step`) on every rank:
 
 A mesh axis of one rank is never redistributed over: a shard over it is
 the whole, so the steps issue no DTensor collective there (gloo runs no
-functional collective on CUDA tensors). Every share is the same size
-(``batch_specs`` splits only what divides), so the mean of the ranks'
-token means is the one-device loss, and the step gives the one-device
-step's values up to the order of its sums.
+functional collective on CUDA tensors). Over a data axis of more than one
+rank, the gradients of leaves whose moments it replicates are summed and
+the decode's logits gathered by ``c10d`` calls, so a state that no rule
+shards over ``data`` trains and serves over gloo on CUDA tensors too.
+Every share is the same size (``batch_specs`` splits only what divides),
+so the mean of the ranks' token means is the one-device loss, and the step
+gives the one-device step's values up to the order of its sums.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ import math
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import (batch_specs, cache_specs_tree,
@@ -192,9 +196,14 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
             on_model = _on_model(mesh, ps.placements())
             g_in = [Partial() if split and a in dp else p for a, p in zip(names, on_model)]
             to = on_model if opt.quantized_moments else list(ms.placements())
-            gd = DTensor.from_local(g.float() / n if n > 1 else g.float(), mesh,
-                                    _same(mesh, to, g_in), run_check=False)
-            reduced.append(_to(gd, to))
+            if split and all(p.is_replicate() for a, p in zip(names, to) if a in dp):
+                # Partial -> Replicate over the data axes: the c10d all-reduce,
+                # which gloo also runs on CUDA tensors
+                reduced.append(_sum_over((g.float() / n).contiguous(), _dp_groups(mesh)))
+            else:
+                gd = DTensor.from_local(g.float() / n if n > 1 else g.float(), mesh,
+                                        _same(mesh, to, g_in), run_check=False)
+                reduced.append(_to(gd, to))
             r = _replicas(mesh, to)
             s = torch.sum(torch.square(reduced[-1]))
             sq.append(s / r if r > 1 else s)
@@ -298,8 +307,6 @@ def make_mesh_decode_step(cfg: ArchConfig, mesh):
     (a cache split over a data axis along its sequence is gathered for the
     step and cut back), and the logits gathered over the data axes
     (replicated, as the reference's ``out_shardings``)."""
-    names = list(mesh_shape(mesh))
-    dp = dp_axes(mesh)
 
     @torch.no_grad()
     def decode_step(params, cache, batch):
@@ -314,10 +321,9 @@ def make_mesh_decode_step(cfg: ArchConfig, mesh):
             rows = _same(mesh, dt.placements, _rows(mesh, dt.placements))
             back = DTensor.from_local(w, mesh, rows, run_check=False)
             local(dt).copy_(_to(back, list(dt.placements)))
-        if split:
-            logits = full_tensor(DTensor.from_local(
-                logits, mesh, [Shard(0) if a in dp else Replicate() for a in names],
-                run_check=False))
+        if split:  # every share's rows, outer axis major (c10d all-gathers)
+            for g in reversed(_dp_groups(mesh)):
+                logits = tp.gather(logits, 0, g)
         return logits, cache
 
     return decode_step

@@ -59,7 +59,7 @@ def run_ranks(world: int, target, args: tuple, tmp_dir, timeout: float = JOIN_S)
         errors = [open(os.path.join(out_dir, n)).read()
                   for n in sorted(os.listdir(out_dir)) if n.startswith("error-")]
         assert not hung, f"ranks {hung} still running after {timeout} s; {errors[:1]}"
-        assert not errors, errors[0]
+        assert not errors, "\n".join(errors)
         assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
     finally:
         for p in procs:
@@ -238,7 +238,9 @@ class WeightFlops:
     """``with WeightFlops(weights) as wf: ...``: the flops of every op that
     ``FlopCounterMode`` counts (its formula table), summed by the leaf whose
     storage one of its operands views (``weights``: storage pointer ->
-    leaf path) into ``wf.flops``."""
+    leaf path) into ``wf.flops``, and those of the ops none of whose
+    operands is a leaf (attention's scores and PV products, in a model
+    without SSM layers) into ``wf.other``."""
 
     def __init__(self, weights: dict):
         from collections import Counter
@@ -255,13 +257,15 @@ class WeightFlops:
                 if formula is not None:
                     hit = {weights.get(t.untyped_storage().data_ptr())
                            for t in args if isinstance(t, torch.Tensor)} - {None}
-                    if hit:
-                        n = formula(*args, **(kwargs or {}), out_val=out)
-                        for k in hit:
-                            owner.flops[k] += n
+                    n = formula(*args, **(kwargs or {}), out_val=out)
+                    for k in hit:
+                        owner.flops[k] += n
+                    if not hit:
+                        owner.other += n
                 return out
 
         self.flops = Counter()
+        self.other = 0
         self._mode = Mode()
 
     def __enter__(self):
@@ -283,8 +287,9 @@ def model_sharded(shardings) -> set:
 def serve_steps(cfg, mesh, placed, params_sharded=(), count_flops=False):
     """The mesh prefill of a (BATCH, SEQ) batch and DECODE_STEPS decode steps
     of fixed tokens against its cache, under the collective counter (and
-    the flop counter by ``params_sharded`` leaf); returns the prefill
-    logits, the decode logits, the cache, the counter and the flops."""
+    the flop counter by leaf); returns the prefill logits, the decode
+    logits, the cache, the counter, the flops of the ``params_sharded``
+    leaves and those of the ops that read no leaf."""
     from repro_torch.distributed.comm import CollectiveCounter
     from repro_torch.models.model import demo_batch
     from repro_torch.train.mesh_step import (local, make_mesh_decode_step,
@@ -292,7 +297,7 @@ def serve_steps(cfg, mesh, placed, params_sharded=(), count_flops=False):
     from repro_torch.tree import leaves_with_paths
 
     weights = {local(t).untyped_storage().data_ptr(): p
-               for p, t in leaves_with_paths(placed) if p in params_sharded}
+               for p, t in leaves_with_paths(placed)}
     batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
     prefill = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ + DECODE_STEPS)
     decode = make_mesh_decode_step(cfg, mesh)
@@ -303,7 +308,8 @@ def serve_steps(cfg, mesh, placed, params_sharded=(), count_flops=False):
             token = demo_batch(cfg, BATCH, 1, kind="decode", seed=2 + i, device="cpu")
             d_logits, cache = decode(placed, cache, token)
             steps.append(d_logits)
-    return logits, steps, cache, cc, dict(wf.flops)
+    flops = {p: n for p, n in wf.flops.items() if p in params_sharded}
+    return logits, steps, cache, cc, flops, wf.other
 
 
 def tp_worker(rank, world, out_dir, name, cfg, shapes):
@@ -339,8 +345,8 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
         sh = param_shardings(params, mesh, cfg)
         placed = place_tree(params, sh)
         sharded = model_sharded(sh)
-        logits, steps, cache, cc, flops = serve_steps(cfg, mesh, placed, sharded,
-                                                      count_flops=True)
+        logits, steps, cache, cc, flops, other = serve_steps(cfg, mesh, placed, sharded,
+                                                             count_flops=True)
         whole_cache = tree_map(lambda t: t.full_tensor().clone(), cache)
 
         opt = AdamWConfig()
@@ -367,7 +373,7 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
         names = list(mesh.mesh_dim_names)
         mname = group.group_name
         torch.save({"logits": logits, "dp_index": coord[names.index(dp_axes(mesh)[0])],
-                    "flops": flops, "spread": spread,
+                    "flops": flops, "other_flops": other, "spread": spread,
                     "serve_gathers": [s for g, s in cc.gathered if g == mname],
                     "train_gathers": [s for g, s in tc.gathered if g == mname],
                     "model_calls": {k: n for (g, k), n in {**cc.by_group, **tc.by_group}.items()
@@ -381,19 +387,20 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
 STEPS_TP = 2
 
 
-def tp_prefill_worker(rank, world, out_dir, cases, shape):
-    """For each ``(name, cfg, npz)``: the reference's parameters (``npz``
-    of its leaves by path) converted, placed on a ``(data, model)`` mesh
-    and prefilled as :func:`serve_steps` does; rank 0 saves the logits."""
+def tp_prefill_worker(rank, world, out_dir, cases):
+    """For each ``(name, cfg, npz, (data, model))``: the reference's
+    parameters (``npz`` of its leaves by path) converted, placed on that
+    mesh and prefilled as :func:`serve_steps` does; every rank saves its
+    logits (its data share's rows) and data index."""
     import numpy as np
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.convert import params_from_reference
-    from repro_torch.distributed.sharding import param_shardings, place_tree
+    from repro_torch.distributed.sharding import dp_axes, param_shardings, place_tree
     from repro_torch.models.model import demo_batch
     from repro_torch.train.mesh_step import make_mesh_prefill_step
 
-    for name, cfg, npz in cases:
+    for name, cfg, npz, shape in cases:
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
         tree: dict = {}
         with np.load(npz) as f:
@@ -407,5 +414,7 @@ def tp_prefill_worker(rank, world, out_dir, cases, shape):
         placed = place_tree(params, param_shardings(params, mesh, cfg))
         batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
         logits, _ = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ)(placed, batch)
-        if rank == 0:
-            torch.save(logits, os.path.join(out_dir, f"{name}-ref-prefill.pt"))
+        coord = mesh.get_coordinate()
+        torch.save({"logits": logits,
+                    "dp_index": coord[list(mesh.mesh_dim_names).index(dp_axes(mesh)[0])]},
+                   os.path.join(out_dir, f"{name}-ref-prefill-rank{rank}.pt"))

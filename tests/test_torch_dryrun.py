@@ -12,7 +12,11 @@
   divided by 4: for qwen3-moe (whole heads, experts, vocabulary-parallel
   head and embedding) everything but the router, whose matmuls (forward,
   remat's recompute and two in the backward, 2 T D E flops each) every
-  rank computes whole.
+  rank computes whole; for a yi-9b of one KV head (the rank's query heads
+  against the KV head built whole) and a gemma2-2b of 6 heads (the rank's
+  quarter of the query sequence with every head) everything. At (2, 2), a
+  mixtral of 3 experts (each expert's width over ``model``, its capacity
+  slots over ``data``) counts alike too.
 * The mesh prefill and decode steps the dry-run traces for prefill and
   decode cells give, on a real gloo (2, 2) run, the one-device logits and
   cache within 1e-4 of the largest value (the whole-model bound of
@@ -69,6 +73,36 @@ def test_dryrun_of_the_tensor_parallel_step(tmp_path):
     router = CFG.n_blocks * 4 * 2 * (BATCH * SEQ) * CFG.d_model * CFG.n_experts
     assert traced[4]["flops"] == (traced[1]["flops"] - router) / 4 + router
     assert traced[4]["argument_size_in_bytes"] < traced[1]["argument_size_in_bytes"] / 2
+
+
+@pytest.mark.parametrize("arch, changes, mesh", [
+    ("yi-9b", {"n_kv_heads": 1}, (1, 4)),                     # the rank's query heads
+    ("gemma2-2b", {"n_heads": 6, "n_kv_heads": 3}, (1, 4)),  # the rank's queries
+    ("mixtral-8x22b", {"n_experts": 3}, (2, 2)),              # the rank's capacity slots
+], ids=["query-heads", "query-sequence", "capacity"])
+def test_dryrun_of_work_on_a_ranks_share(arch, changes, mesh, tmp_path):
+    cfg = smoke_cfg(arch, 512, **changes)
+    d, m = mesh
+    H, K, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_experts
+    C = max(8, min(math.ceil(BATCH * SEQ * cfg.top_k / max(E, 1) * cfg.capacity_factor),
+                   BATCH * SEQ))
+    assert {"yi-9b": H % m == 0 and K % m, "gemma2-2b": H % m and SEQ % m == 0 and SEQ > m,
+            "mixtral-8x22b": E % m and C % d == 0}[arch]
+    jobs = [("tp", mesh, True, False, False, 1, True)]
+    out = run_ranks(4, train_worker, (cfg, jobs), tmp_path)
+    real = torch.load(os.path.join(out, "tp.pt"), weights_only=False)["counted"]
+    shape = ShapeConfig("smoke", SEQ, BATCH, "train")
+    traced = {n: dryrun.trace_step(cfg, shape, n * d,
+                                   lambda dt, n=n: make_host_mesh(d, n, device_type=dt))
+              for n in (1, m)}
+    assert traced[m]["collective_calls"] == real["calls"]
+    assert traced[m]["collectives"] == real["bytes"]
+    if arch != "yi-9b":  # there and back, forward and backward, a layer
+        assert real["calls"]["all-to-all"] >= 4 * cfg.n_layers
+    if d == 1:  # every weight is split over model, and so is attention's work
+        assert traced[m]["flops"] * m == traced[1]["flops"]
+    else:  # below 1/m of (d, 1)'s: the experts there run every slot
+        assert traced[m]["flops"] * m < traced[1]["flops"]
 
 
 def test_roofline_reads_the_dryrun_records(tmp_path):

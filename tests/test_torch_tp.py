@@ -21,23 +21,34 @@ Spawned gloo ranks (``tests/_torch_dist.py``) run each config at meshes
   training;
 * at (1, m), the flops of every matmul that reads a ``model``-sharded leaf
   (``FlopCounterMode``'s formulas, summed by leaf) are 1/m of the
-  one-device run's;
+  one-device run's; where attention takes the query-head or the sequence
+  split (``ATTENTION``, each asserted against the reference's condition),
+  so are the flops of the ops that read no leaf (the scores and PV
+  products), and no rank gathers q of every head over every query; at
+  (2, 2), where the MoE capacity splits over ``data`` (``CAPACITY``), the
+  experts' flops are 1/4 of the one-device run's;
 * every replicated leaf's gradient is the same on each rank of a ``model``
   group.
 
 The configs are the smoke configs of ``tests/test_torch_mesh_train.py``
 (mamba2-780m with 514 ids, so its tied embedding is split by vocabulary
 at m = 2 and by columns at m = 4; yi-9b with 2 KV heads, so its heads are
-whole at m = 2 and gathered at m = 4; qwen3-moe and jamba, experts split
+whole at m = 2 and split by query head at m = 4; qwen3-moe and jamba, experts split
 over ``model``), mixtral (experts split at m = 2 and 4), mixtral with 6
 experts and 514 ids (each expert's width split and the embedding's
 columns at m = 4) and whisper-medium (the encoder, and cross-attention in
-prefill and decode). The (1, 4) prefill of yi-9b and mamba2 also equals
-the reference's jitted prefill under ``use_mesh`` on 4 forced host
+prefill and decode); and the configs whose heads or experts do not divide:
+yi-9b with one KV head (the rank's query heads), gemma2-2b with 6 heads
+and 3 KV heads (query heads at m = 2, the queries at m = 4) and with 3
+and 1 (the queries), qwen1.5-4b with 6 heads and 6 KV heads (the queries
+at m = 4) and mixtral with 3 experts (the capacity over ``data`` at
+(2, 2)). The prefill of each case of ``REF_CASES`` on its mesh also
+equals the reference's jitted prefill under ``use_mesh`` on forced host
 devices, on its own parameters converted, within 1e-4.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,7 +76,23 @@ CONFIGS = {
     "mixtral-8x22b": ("mixtral-8x22b", 512, {}),
     "mixtral-e6": ("mixtral-8x22b", 514, {"n_experts": 6}),
     "whisper-medium": ("whisper-medium", 512, {}),
+    "yi-kv1": ("yi-9b", 512, {"n_kv_heads": 1}),
+    "gemma2-h6": ("gemma2-2b", 512, {"n_heads": 6, "n_kv_heads": 3}),
+    "gemma2-h3": ("gemma2-2b", 512, {"n_heads": 3, "n_kv_heads": 1}),
+    "qwen1.5-h6": ("qwen1.5-4b", 512, {"n_heads": 6, "n_kv_heads": 6}),
+    "mixtral-e3": ("mixtral-8x22b", 512, {"n_experts": 3}),
 }
+#: the meshes (data, model) at which a case's attention takes the query-head
+#: split (H divides over model, K does not) or the sequence split (H does
+#: not divide; a single block of SEQ queries, SEQ a multiple of m above it)
+ATTENTION = {"yi-9b": {(1, 4): "query"},
+             "yi-kv1": {(1, 2): "query", (1, 4): "query"},
+             "gemma2-h6": {(1, 2): "query", (1, 4): "seq"},
+             "gemma2-h3": {(1, 2): "seq", (1, 4): "seq"},
+             "qwen1.5-h6": {(1, 4): "seq"}}
+#: the cases whose MoE capacity splits over data at (2, 2) (E does not
+#: divide over model, C over data does)
+CAPACITY = {"mixtral-e3"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,7 +143,7 @@ def one_device(cfg):
         state, metrics = step(state, b)
         losses.append(float(metrics["loss"]))
     return {"logits": logits, "steps": steps, "cache": cache, "flops": dict(wf.flops),
-            "losses": losses, "state": state, "params": params, "allowance": allowance}
+            "other_flops": wf.other, "losses": losses, "state": state, "params": params, "allowance": allowance}
 
 
 def adam_allowance(state, batch, cfg) -> dict:
@@ -158,6 +185,28 @@ def forbidden_shapes(params, sharded: set) -> set:
     return out
 
 
+def capacity(cfg, tokens: int) -> int:
+    """``moe``'s C for a call over ``tokens`` tokens (the reference's)."""
+    c = math.ceil(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(8, min(c, tokens))
+
+
+def split_of(cfg, case: str, d: int, m: int) -> tuple[str | None, bool]:
+    """The attention split and whether the capacity splits that a case
+    takes at (d, m), each asserted against the reference's condition."""
+    layout = ATTENTION.get(case, {}).get((d, m))
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if layout == "query":
+        assert H % m == 0 and K % m != 0, (case, d, m)
+    if layout == "seq":
+        assert H % m != 0 and SEQ % m == 0 and SEQ > m and cfg.hd * H % m == 0, (case, d, m)
+    cap = case in CAPACITY and d > 1
+    if cap:
+        assert cfg.n_experts % m != 0, case
+        assert all(capacity(cfg, BATCH * s) % d == 0 for s in (SEQ, 1)), case
+    return layout, cap
+
+
 @pytest.mark.parametrize("case", list(CONFIGS))
 def test_tensor_parallel_steps_are_the_one_device_run(case, tmp_path):
     arch, vocab, changes = CONFIGS[case]
@@ -171,6 +220,9 @@ def test_tensor_parallel_steps_are_the_one_device_run(case, tmp_path):
         assert sharded, tag
         bad = forbidden_shapes(want["params"], sharded)
         rows = BATCH // d
+        layout, cap = split_of(cfg, case, d, m)
+        if layout:  # no rank builds q of every head over every query
+            bad.add((rows, SEQ, cfg.n_heads * cfg.hd))
         for r in range(d * m):
             got = torch.load(os.path.join(out, f"{tag}-rank{r}.pt"), weights_only=False)
             i = got["dp_index"]
@@ -188,6 +240,15 @@ def test_tensor_parallel_steps_are_the_one_device_run(case, tmp_path):
                     n1 = want["flops"].get(path, 0)
                     assert got["flops"].get(path, 0) * m == n1, \
                         f"{tag} rank {r} {path}: {got['flops'].get(path, 0)} x {m} != {n1}"
+            if layout:  # the scores and PV products of the rank's share
+                assert got["other_flops"] * m == want["other_flops"] > 0, \
+                    f"{tag} rank {r}: attention {got['other_flops']} x {m} != {want['other_flops']}"
+            if cap:  # the experts on the rank's capacity slots and columns
+                experts = [p for p in want["flops"] if "/ffn/w_" in p]
+                assert experts and experts == [p for p in experts if p in sharded], tag
+                for path in experts:
+                    assert got["flops"][path] * d * m == want["flops"][path], \
+                        f"{tag} rank {r} {path}: {got['flops'][path]} x {d * m}"
         got = torch.load(os.path.join(out, f"{tag}.pt"), weights_only=False)
         for i, (a, b) in enumerate(zip(got["steps"], want["steps"])):
             close(a, b, f"{tag} decode step {i + 1} logits")
@@ -203,14 +264,22 @@ def test_tensor_parallel_steps_are_the_one_device_run(case, tmp_path):
 
 
 # ---------------------------------------------------------- the reference
-REF_CASES = {"yi-9b": ("yi-9b", 512, {"n_kv_heads": 2}),
-             "mamba2-780m": ("mamba2-780m", 512, {})}
+#: name -> (arch, vocab, changes, (data, model))
+REF_CASES = {"yi-9b": ("yi-9b", 512, {"n_kv_heads": 2}, (1, 4)),
+             "mamba2-780m": ("mamba2-780m", 512, {}, (1, 4)),
+             "yi-kv1-1x2": ("yi-9b", 512, {"n_kv_heads": 1}, (1, 2)),
+             "yi-kv1-1x4": ("yi-9b", 512, {"n_kv_heads": 1}, (1, 4)),
+             "gemma2-h6": ("gemma2-2b", 512, {"n_heads": 6, "n_kv_heads": 3}, (1, 4)),
+             "gemma2-h3": ("gemma2-2b", 512, {"n_heads": 3, "n_kv_heads": 1}, (1, 2)),
+             "qwen1.5-h6": ("qwen1.5-4b", 512, {"n_heads": 6, "n_kv_heads": 6}, (1, 4)),
+             "mixtral-e3": ("mixtral-8x22b", 512, {"n_experts": 3}, (2, 2))}
 
 
 @pytest.fixture(scope="module")
 def reference_prefill(tmp_path_factory):
-    """The reference's (1, 4) jitted prefill on 4 forced host devices, its
-    parameters (seed 0) saved by path: {case: (npz path, logits)}."""
+    """The reference's jitted prefill on each case's mesh of 4 forced host
+    devices (the first 2 for a (1, 2) mesh), its parameters (seed 0) saved
+    by path: {case: (npz path, logits)}."""
     root = tmp_path_factory.mktemp("ref-tp")
     code = f"""
 import json
@@ -223,11 +292,12 @@ from repro.distributed.sharding import batch_specs, param_shardings, use_mesh
 from repro.models.model import build_params, demo_batch
 from repro.train.train_step import make_prefill_step
 out = {{}}
-for name, (arch, vocab, changes) in {REF_CASES!r}.items():
+for name, (arch, vocab, changes, shape) in {REF_CASES!r}.items():
     cfg = replace(REGISTRY[arch].smoke(), dtype="float32", vocab_size=vocab, **changes)
     params = build_params(cfg, seed=0)
     batch = demo_batch(cfg, {BATCH}, {SEQ}, kind="prefill", seed=1)
-    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4), ("data", "model"))
+    mesh = Mesh(np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape),
+                ("data", "model"))
     with use_mesh(mesh):
         step = jax.jit(make_prefill_step(cfg, max_seq={SEQ}),
                        in_shardings=(param_shardings(params, mesh, cfg),
@@ -250,10 +320,19 @@ print(json.dumps(out))
 
 
 def test_tensor_parallel_prefill_is_the_references(reference_prefill, tmp_path):
-    cases = []
-    for name, (arch, vocab, changes) in REF_CASES.items():
-        cases.append((name, smoke_cfg(arch, vocab, **changes), reference_prefill[name][0]))
-    out = run_ranks(4, tp_prefill_worker, (cases, (1, 4)), tmp_path)
-    for name, _, _ in cases:
-        got = torch.load(os.path.join(out, f"{name}-ref-prefill.pt"))
-        close(got, reference_prefill[name][1], f"{name} (1, 4) prefill vs the reference")
+    by_world: dict = {}
+    for name, (arch, vocab, changes, shape) in REF_CASES.items():
+        cfg = smoke_cfg(arch, vocab, **changes)
+        split_of(cfg, name.removesuffix("-1x2").removesuffix("-1x4"), *shape)
+        by_world.setdefault(shape[0] * shape[1], []).append(
+            (name, cfg, reference_prefill[name][0], shape))
+    for world, cases in by_world.items():
+        out = run_ranks(world, tp_prefill_worker, (cases,), tmp_path)
+        for name, _, _, shape in cases:
+            want = reference_prefill[name][1]
+            rows = BATCH // shape[0]
+            for r in range(world):
+                got = torch.load(os.path.join(out, f"{name}-ref-prefill-rank{r}.pt"))
+                i = got["dp_index"]
+                close(got["logits"], want[i * rows:(i + 1) * rows],
+                      f"{name} {shape} prefill rank {r} vs the reference")
