@@ -252,9 +252,16 @@ TP_SMOKE = {"mamba2-780m": ("mamba2-780m", {}), "yi-9b": ("yi-9b", {"n_kv_heads"
             "gemma2-2b-h3": ("gemma2-2b", {"n_heads": 3, "n_kv_heads": 1}),
             "qwen1.5-4b-h3": ("qwen1.5-4b", {"n_heads": 3, "n_kv_heads": 3})}
 TP_MESH_DP = (2, 2)  # four more ranks on the card, started with those two
-#: their smoke config: 3 experts, which do not divide over model, so the MoE
-#: capacity slots split over data
-TP_SMOKE_DP = {"mixtral-8x22b-e3": ("mixtral-8x22b", {"n_experts": 3})}
+#: their smoke configs: 3 experts, which do not divide over model, so the MoE
+#: capacity slots split over data; and yi-9b's widened until its MLP leaves
+#: reach the FSDP threshold of 2^20 entries, run with FSDP (``TP_FSDP``)
+TP_SMOKE_DP = {"mixtral-8x22b-e3": ("mixtral-8x22b", {"n_experts": 3}),
+               "yi-9b-fsdp": ("yi-9b", {"d_model": 256, "d_ff": 4096, "n_kv_heads": 2})}
+TP_FSDP = {"yi-9b-fsdp"}  # the configs whose state is placed with fsdp=True
+#: and yi-9b at its full width (d_model 4,096, d_ff 11,008, 32 query and 4 KV
+#: heads, vocab 64,000) in fp32, cut in depth to 4 blocks: FSDP on those ranks
+#: too, its peak device memory held to a pass that gathers the whole tree
+TP_FSDP_FULL = ("yi-9b-full", "yi-9b", 4)
 TP_BATCH, TP_SEQ = 4, 16  # their prefill batch; the cache holds TP_SEQ + TP_DECODE
 TP_DECODE = 4  # decode steps after each prefill
 TP_TRAIN_STEPS = 2  # train steps from step 50
@@ -314,6 +321,11 @@ def device_ms(fn, name: str, reps: int
 #: them, and the profiler dates some records up to about 2 ms across the
 #: marker's edges (PERF.md §7)
 WINDOW_MARK = "chip_smoke.window"
+#: the idle seconds before and after the marker under the profiler. The
+#: profiler drops the device records of a trace's first launches: late in a
+#: long process, every kernel of its first 1.4 ms, the warm-up's and the
+#: window's first (PERF.md §7); so the window starts well after them
+WINDOW_PAD_S = 0.1
 
 
 def kernel_key(name: str) -> str | None:
@@ -344,7 +356,8 @@ def checked(what: str, run, wrappers: dict) -> tuple:
 
 def device_window(fn) -> tuple[tuple[float, dict[str, list]], dict[str, int], str]:
     """Run ``fn`` once under torch.profiler, after a one-element warm-up
-    launch before the window's marker. Returns the window's wall seconds
+    launch and ``WINDOW_PAD_S`` before the window's marker (and as long
+    after it). Returns the window's wall seconds
     and, per device activity (each port kernel by wrapper, anywhere in the
     trace; copies, sets and other kernels in the marker's span), its count
     and summed device seconds (empty when the profiler saw no device time);
@@ -358,11 +371,13 @@ def device_window(fn) -> tuple[tuple[float, dict[str, list]], dict[str, int], st
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
+        time.sleep(WINDOW_PAD_S)
         with record_function(WINDOW_MARK):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        time.sleep(WINDOW_PAD_S)
     events = prof.events()
     mark = next(ev.time_range for ev in events
                 if ev.name == WINDOW_MARK and ev.device_type == DeviceType.CPU)
@@ -4118,8 +4133,11 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
     is None, each group meeting over gloo with CUDA tensors, since NCCL
     takes one rank a device), tensor-parallel over ``model``: the
     ``TP_SMOKE`` configs (among them attention on a rank's query heads and
-    on its queries) and the ``TP_SMOKE_DP`` one (MoE capacity slots split
-    over ``data``) in fp32 (TF32 off), the mesh prefill, ``TP_DECODE``
+    on its queries) and the ``TP_SMOKE_DP`` ones (MoE capacity slots split
+    over ``data``; a yi-9b widened to the FSDP threshold, its state placed
+    with FSDP, :func:`fsdp_check`; and ``TP_FSDP_FULL``, yi-9b at full width
+    cut to 4 blocks with FSDP, :func:`fsdp_full_check`) in fp32 (TF32 off),
+    the mesh prefill, ``TP_DECODE``
     decode steps and ``TP_TRAIN_STEPS`` train steps held to the card's
     one-device run within ``TP_TOL`` (:func:`tp_reference`), and mamba2-780m
     at full width in fp32 (48 SSM heads, 24 a rank) over the lm phase's
@@ -4394,6 +4412,28 @@ def _tp_cfg(name: str):
     return replace(REGISTRY[arch].smoke(), dtype="float32", **changes)
 
 
+def _tp_full_cfg():
+    """The ``TP_FSDP_FULL`` config: its architecture at full width in fp32,
+    cut in depth to its blocks."""
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+
+    _, arch, blocks = TP_FSDP_FULL
+    cfg = REGISTRY[arch]
+    return replace(cfg, n_layers=blocks * cfg.layers_per_block, dtype="float32")
+
+
+def _tp_full_params(cfg, dev: torch.device) -> dict:
+    """Its parameters drawn on the card from the card's generator at seed 0:
+    the same weights in every process on the card, in seconds where the
+    host's generator takes minutes at this width."""
+    from repro_torch.models.transformer import init_params
+
+    with torch.device(dev):
+        return init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+
+
 def tp_reference(dev: torch.device, max_seq: int) -> dict:
     """The one-device card run (fp32, TF32 off) that the dist phase's
     tensor-parallel ranks are held to: for each ``TP_SMOKE`` and
@@ -4402,7 +4442,9 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     host), each parameter's allowance (lr x the change of each step for a
     gradient change of ``TP_TOL`` of the leaf's largest gradient: Adam
     divides every entry by its own magnitude, as the CPU tests allow) and
-    the state's shardings on its ranks' mesh; and, on ``meta`` tensors,
+    the state's shardings on its ranks' mesh; for ``TP_FSDP_FULL`` (on the
+    card's generator, :func:`_tp_full_params`) the logits, the losses and
+    the shardings; and, on ``meta`` tensors,
     mamba2-780m's full-width fp32 parameter bytes and the matmul flops of
     one decode step of the lm phase's prompt batch (5 rows, a cache of
     ``max_seq``)."""
@@ -4414,7 +4456,8 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     from repro_torch.core.tokenizer import VOCAB_SIZE
     from repro_torch.models.model import demo_batch, serve_decode, serve_prefill
     from repro_torch.models.transformer import abstract_cache, abstract_params
-    from repro_torch.optim.adamw import (AdamWConfig, cosine_schedule, param_nodes)
+    from repro_torch.optim.adamw import (AdamWConfig, cosine_schedule, init_state,
+                                         param_nodes)
     from repro_torch.train.state import make_abstract_state, make_state, state_shardings
     from repro_torch.train.train_step import loss_and_grads, make_train_step
     from repro_torch.tree import leaves, leaves_with_paths, tree_map
@@ -4472,7 +4515,37 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
                          "allowance": allowance,
                          "shardings": state_shardings(make_abstract_state(cfg, opt),
                                                       {"data": mesh[0], "model": mesh[1]},
-                                                      cfg)}
+                                                      cfg, fsdp=name in TP_FSDP)}
+        # the full-width FSDP case: logits and losses only (its state is
+        # held leaf by leaf at smoke width)
+        cfg = _tp_full_cfg()
+        opt = AdamWConfig()
+        params = _tp_full_params(cfg, dev)
+        state = {"params": params, "opt": init_state(params, opt),
+                 "step": torch.full((), 50, dtype=torch.int32, device=dev)}
+        with torch.no_grad():
+            logits, cache = serve_prefill(
+                params, demo_batch(cfg, TP_BATCH, TP_SEQ, kind="prefill", seed=1,
+                                   device=dev), cfg, max_seq=TP_SEQ + TP_DECODE)
+            steps = []
+            for i in range(TP_DECODE):
+                tok = demo_batch(cfg, TP_BATCH, 1, kind="decode", seed=2 + i, device=dev)
+                lg, cache = serve_decode(params, cache, tok, cfg)
+                steps.append(lg.cpu())
+        del params, cache
+        step = make_train_step(cfg, opt)
+        losses = []
+        for i in range(TP_TRAIN_STEPS):
+            state, metrics = step(state, demo_batch(cfg, TP_BATCH, TP_SEQ, kind="train",
+                                                    seed=i, device=dev))
+            losses.append(float(metrics["loss"]))
+        out[TP_FSDP_FULL[0]] = {
+            "logits": logits.cpu(), "steps": steps, "losses": losses,
+            "shardings": state_shardings(make_abstract_state(cfg, opt),
+                                         {"data": TP_MESH_DP[0], "model": TP_MESH_DP[1]},
+                                         cfg, fsdp=True)}
+        del state, step, logits
+        torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     cfg32 = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE, dtype="float32")
@@ -4544,10 +4617,16 @@ def tp_check(card: str, mesh: tuple, got: list, want: dict, fp32_card: dict | No
                                          f"> {bound:.3e}")
         worst[name] = max(errs)
     # the capacity split's dispatch and return are all-to-alls over data
-    a2a = [rank["smoke"][n]["data_all_to_all"] for rank in got for n in _tp_cases(mesh)]
+    a2a = [rank["smoke"][n]["data_all_to_all"] for rank in got for n in _tp_cases(mesh)
+           if n not in TP_FSDP]
     if tuple(mesh) == TP_MESH_DP and not all(a2a):
         raise AssertionError(f"dist: ranks of {mesh} made {a2a} all-to-alls over data: "
                              "the MoE capacity did not split")
+    for name in TP_FSDP & set(_tp_cases(mesh)):
+        fsdp_check(card, mesh, name, _tp_cfg(name), want[name]["shardings"],
+                   [rank["smoke"][name] for rank in got])
+    if tuple(mesh) == TP_MESH_DP:
+        fsdp_full_check(card, mesh, got, want[TP_FSDP_FULL[0]])
     log("dist", f"[{card}] (e) {len(got)} ranks of a {mesh} mesh on the card, tensor-parallel "
         f"over model, meeting over gloo with CUDA tensors; {len(_tp_cases(mesh))} smoke configs "
         f"in fp32 (TF32 off): prefill ({TP_BATCH}, {TP_SEQ}), {TP_DECODE} decode steps and "
@@ -4589,13 +4668,95 @@ def tp_check(card: str, mesh: tuple, got: list, want: dict, fp32_card: dict | No
         f"{sum(x['full']['model_calls'] for x in got)} collectives over model")
 
 
+def fsdp_check(card: str, mesh: tuple, name: str, cfg, shardings: dict,
+               got: list) -> None:
+    """An FSDP case (each rank's results ``got``): its all-gathers over
+    ``data`` on each rank, a block's FSDP leaves gathered where the block
+    runs (once in the prefill and in each decode step, which also gathers
+    its logits; twice a train step, the forward pass and remat's
+    recompute) and the others' once a call, none of a block's at a step's
+    start; and each rank's peak device memory over the train steps below
+    that of a pass that gathers every leaf at its start, by at least
+    (blocks - 2) blocks' gathered FSDP bytes (:func:`fsdp_memory`). Every
+    check raises."""
+    from repro_torch.tree import leaves_with_paths
+
+    on_data = [p for p, s in leaves_with_paths(shardings["params"])
+               if s.placements()[0].is_shard()]  # mesh dims (data, model)
+    fsdp = [p for p in on_data if p.startswith("blocks/")]
+    if not fsdp:
+        raise AssertionError(f"dist: no block leaf of {name} is FSDP-sharded at {mesh}")
+    blocks, outer = len(fsdp) * cfg.n_blocks, len(on_data) - len(fsdp)
+    expect = [(blocks + outer) * (1 + TP_DECODE) + TP_DECODE,
+              (2 * blocks + outer) * TP_TRAIN_STEPS]
+    counts = [g["data_gathers"] for g in got]
+    if any(c != expect for c in counts):
+        raise AssertionError(f"dist: {name} ranks made {counts} all-gathers over data "
+                             f"(serve, train), not {expect}")
+    mem = [g["memory"] for g in got]
+    need = max(cfg.n_blocks - 2, 0)
+    for r, m in enumerate(mem):
+        if m["step"] is not None and m["whole"] - m["step"] < need * m["block_bytes"]:
+            raise AssertionError(
+                f"dist: {name} rank {r} peaked at {m['step']} B over its train steps, "
+                f"{m['whole'] - m['step']} B below a pass gathering the whole tree "
+                f"({m['whole']} B), not the {need} x {m['block_bytes']} B of "
+                f"{need} blocks' gathered FSDP leaves")
+    log("dist", f"[{card}] (e) {name} at {mesh} with FSDP ({len(fsdp)} block leaves and "
+        f"{outer} others sharded over data, {cfg.n_blocks} blocks): all-gathers over data "
+        f"a rank (CollectiveCounter.by_group) {expect[0]} in the prefill and {TP_DECODE} "
+        f"decode steps, {expect[1]} in {TP_TRAIN_STEPS} train steps, as expected; "
+        f"max_memory_allocated a rank over the train steps "
+        f"{', '.join(str(m['step']) for m in mem)} B, after them "
+        f"{', '.join(str(m['state']) for m in mem)} B; a pass gathering every leaf at its "
+        f"start {', '.join(str(m['whole']) for m in mem)} B; saved "
+        f"{', '.join(str(m['whole'] - m['step']) for m in mem if m['step'] is not None)} B "
+        f"against {need} x {mem[0]['block_bytes']} B (a block's FSDP leaves gathered)")
+
+
+def fsdp_full_check(card: str, mesh: tuple, got: list, want: dict) -> None:
+    """The ``TP_FSDP_FULL`` case on each rank of ``mesh``: its prefill
+    logits (the rank's data rows), decode logits and losses within
+    ``TP_TOL`` of the card's one-device run with equal greedy ids, then
+    :func:`fsdp_check`. Every check raises."""
+    name = TP_FSDP_FULL[0]
+    rows = TP_BATCH // mesh[0]
+    errs = []
+    for r, rank in enumerate(got):
+        g, at = rank[name], _tp_at(r, mesh)
+        share = want["logits"][at["data"] * rows:(at["data"] + 1) * rows]
+        for what, a, b in [("prefill", g["logits"], share)] + [
+                (f"decode {i + 1}", x, y) for i, (x, y) in enumerate(zip(g["steps"],
+                                                                       want["steps"],
+                                                                       strict=True))]:
+            errs.append(float((a.double() - b.double()).abs().max()
+                              / b.double().abs().max()))
+            if a.shape != b.shape or errs[-1] > TP_TOL or \
+                    not torch.equal(a.argmax(-1), b.argmax(-1)):
+                raise AssertionError(f"dist: {name} rank {r} {what} logits differ from the "
+                                     f"one-device run by {errs[-1]:.3e}, or their ids")
+        for a, b in zip(g["losses"], want["losses"], strict=True):
+            if abs(a - b) > TP_TOL * abs(b):
+                raise AssertionError(f"dist: {name} rank {r} losses {g['losses']} "
+                                     f"against {want['losses']}")
+    cfg = _tp_full_cfg()
+    log("dist", f"[{card}] (e) {name}: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads, vocab "
+        f"{cfg.vocab_size}) in fp32, {cfg.n_blocks} blocks, on the {mesh} ranks with FSDP: "
+        f"prefill, {TP_DECODE} decode steps and losses {got[0][name]['losses']} == the "
+        f"card's one-device run's {want['losses']} within {TP_TOL} (worst logit error "
+        f"{max(errs):.2e}, greedy ids equal)")
+    fsdp_check(card, mesh, name, cfg, want["shardings"], [rank[name] for rank in got])
+
+
 def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
             mesh_arg: str = "1,2") -> int:
     """``chip_smoke.py --tp-rank RANK PORT DIR [DEVICE [D,M]]``: one of the
     dist phase's tensor-parallel ranks, on the card, in a gloo group of the
     ranks of a (D, M) mesh (``TP_MESH`` or ``TP_MESH_DP``) at
     ``localhost:PORT``: its smoke configs' (``_tp_cases``) mesh prefill,
-    decode and train steps, and, where ``DIR/inputs.pt`` holds the lm
+    decode and train steps (at ``TP_MESH_DP`` ``TP_FSDP_FULL``'s too, its
+    weights drawn on the card), and, where ``DIR/inputs.pt`` holds the lm
     phase's prompt batch, mamba2-780m at full width in fp32 over it (one
     decode step under ``FlopCounterMode``), under the collective counter;
     writes ``DIR/rank{RANK}.pt``. (``device_type`` ``"cpu"`` runs it on the
@@ -4637,10 +4798,19 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
         at = {"data": mesh.get_local_rank("data"), "model": mesh.get_local_rank("model")}
 
         def place(tree, shardings):
-            """The rank's shards, cut on the host and moved to the card."""
-            return tree_map(lambda t, s: DTensor.from_local(
-                _tp_cut(t, s.spec, at, shape).to(dev), mesh, list(s.placements()),
-                run_check=False), tree, shardings)
+            """The rank's shards, cut from the whole and made the rank's own
+            on the card (a ``meta`` leaf gives zeros of the shard's shape)."""
+            def one(t, s):
+                part = _tp_cut(t, s.spec, at, shape)
+                if part.is_meta:
+                    part = torch.zeros(part.shape, dtype=part.dtype, device=dev)
+                elif part.device == dev:  # not a view of the whole
+                    part = part.clone(memory_format=torch.contiguous_format)
+                else:
+                    part = part.to(dev)
+                return DTensor.from_local(part, mesh, list(s.placements()), run_check=False)
+
+            return tree_map(one, tree, shardings)
 
         def forbidden(tree, shardings) -> set:
             """The shapes of the leaves split over model, whole and a block."""
@@ -4659,7 +4829,8 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
                                        if g == group),
                     "data_all_to_all": sum(n for c in counters
                                            for (g, k), n in c.by_group.items()
-                                           if g == data_group and k == "all-to-all")}
+                                           if g == data_group and k == "all-to-all"),
+                    "data_gathers": [c.by_group[data_group, "all-gather"] for c in counters]}
 
         results: dict = {"smoke": {}, "times": {}}
         inputs = os.path.join(out_dir, "inputs.pt")
@@ -4672,15 +4843,9 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
             params=build_params(full_cfg, seed=0, device="cpu")), daemon=True)
         if os.path.exists(inputs):
             draw.start()
-        t0 = time.perf_counter()
-        for name in _tp_cases(shape):
-            cfg = _tp_cfg(name)
-            opt = AdamWConfig()
-            whole = make_state(cfg, opt, seed=0, device="cpu")
-            whole["step"].fill_(50)
-            sh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg)
-            state = place(whole, sh)
-            bad = forbidden(whole["params"], sh["params"])
+        def run(cfg, opt, state, sh, bad, fsdp: bool) -> tuple[dict, dict]:
+            """A case's mesh prefill, decode and train steps; the results
+            and the state after them."""
             with CollectiveCounter() as cc:
                 logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=TP_SEQ + TP_DECODE)(
                     state["params"], demo_batch(cfg, TP_BATCH, TP_SEQ, kind="prefill",
@@ -4691,18 +4856,53 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
                     tok = demo_batch(cfg, TP_BATCH, 1, kind="decode", seed=2 + i, device=dev)
                     lg, cache = decode(state["params"], cache, tok)
                     steps.append(lg.cpu())
+            del cache
             step = make_mesh_train_step(cfg, opt, mesh, sh)
             losses = []
+            if fsdp and device_type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
             with CollectiveCounter() as tc:
                 for i in range(TP_TRAIN_STEPS):
                     state, metrics = step(state, demo_batch(cfg, TP_BATCH, TP_SEQ,
                                                             kind="train", seed=i, device=dev))
                     losses.append(float(metrics["loss"]))
-            results["smoke"][name] = {"logits": logits.cpu(), "steps": steps,
-                                      "losses": losses,
-                                      "state": tree_map(lambda t: local(t).cpu(), state),
-                                      **report([cc, tc], bad)}
+            out = {"logits": logits.cpu(), "steps": steps, "losses": losses,
+                   **report([cc, tc], bad)}
+            if fsdp:
+                out["memory"] = fsdp_memory(state, cfg, mesh, demo_batch(
+                    cfg, TP_BATCH, TP_SEQ, kind="train", seed=0, device=dev), device_type)
+            return out, state
+
+        t0 = time.perf_counter()
+        for name in _tp_cases(shape):
+            cfg = _tp_cfg(name)
+            opt = AdamWConfig()
+            whole = make_state(cfg, opt, seed=0, device="cpu")
+            whole["step"].fill_(50)
+            fsdp = name in TP_FSDP
+            sh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg, fsdp=fsdp)
+            out, state = run(cfg, opt, place(whole, sh), sh,
+                             forbidden(whole["params"], sh["params"]), fsdp)
+            results["smoke"][name] = {**out,
+                                      "state": tree_map(lambda t: local(t).cpu(), state)}
         results["times"]["smoke_s"] = round(time.perf_counter() - t0, 1)
+        if shape == TP_MESH_DP:
+            # yi-9b at full width with FSDP, its weights drawn on the card
+            t0 = time.perf_counter()
+            cfg, opt = _tp_full_cfg(), AdamWConfig()
+            abstract = make_abstract_state(cfg, opt)
+            sh = state_shardings(abstract, mesh, cfg, fsdp=True)
+            whole = {"params": _tp_full_params(cfg, dev), "opt": abstract["opt"],
+                     "step": torch.full((), 50, dtype=torch.int32)}
+            state = place(whole, sh)
+            del whole
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            results[TP_FSDP_FULL[0]], state = run(
+                cfg, opt, state, sh, forbidden(abstract["params"], sh["params"]), True)
+            del state
+            results["times"]["fsdp_full_s"] = round(time.perf_counter() - t0, 1)
         if os.path.exists(inputs):
             t0 = time.perf_counter()
             inp = torch.load(inputs, weights_only=False)
@@ -4743,6 +4943,48 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
     finally:
         tdist.destroy_process_group()
     return 0
+
+
+def fsdp_memory(state: dict, cfg, mesh, batch: dict, device_type: str) -> dict:
+    """A (2, 2) rank's device memory around its FSDP train steps: their
+    peak (``max_memory_allocated`` since the steps began), what is
+    allocated after them (the state), and the peak of one loss and
+    gradient pass of ``batch`` on that state with every FSDP leaf gathered
+    over ``data`` at the pass's start, as a step that gathers the whole
+    tree holds them until its gradients are done (the mesh train step's
+    model, per-block autograd leaves, gathers and reduce-scatters; only
+    where the blocks' gathers happen differs); and the bytes of one
+    block's FSDP leaves gathered (the rank's ``model`` shard). The device
+    numbers are None on the host."""
+    from repro_torch.distributed.sharding import mesh_shape, use_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.transformer import STACKS
+    from repro_torch.train import mesh_step as ms
+    from repro_torch.tree import leaves, tree_map
+
+    params = state["params"]
+    block = sum(ms.local(p)[0].numel() * p.element_size() * mesh_shape(mesh)["data"]
+                for p in leaves(params["blocks"])
+                if ms._fsdp_dim(mesh, p.placements) is not None)
+    if device_type != "cuda":
+        return {"step": None, "state": None, "whole": None, "block_bytes": block}
+    torch.cuda.synchronize()
+    step, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tree, flat, _ = ms._block_leaves(tree_map(ms.local, params))
+    share, split = ms._share(batch, mesh)
+    gather, fetch = ms._fsdp(mesh, params, split)
+    with use_mesh(mesh), torch.enable_grad(), \
+            layers.split_batch(ms._dp_groups(mesh) if split else []):
+        whole = {**gather(tree), **{k: [fetch(b, k) for b in tree[k]]
+                                    for k in STACKS if k in tree}}
+        loss = loss_fn(whole, share, cfg, True)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del grads, whole, loss, tree, flat
+    return {"step": step, "state": held, "whole": peak, "block_bytes": block}
 
 
 def start_dryrun_probe() -> subprocess.Popen:

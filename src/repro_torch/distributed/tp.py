@@ -10,7 +10,11 @@ forward's conjugate:
 * ``gather``: an all-gather along a dim forward, the rank's slice backward;
 * ``scatter``: the rank's slice forward, an all-gather backward;
 * ``all_to_all``: one dim split over the ranks and another concatenated
-  forward, the reverse exchange backward.
+  forward, the reverse exchange backward;
+* ``gather_data``: a parameter's FSDP shards all-gathered over the
+  ``data`` axis forward, the gradient reduce-scattered back into the
+  rank's shard (or, where every rank computed the whole batch, its slice)
+  backward.
 
 A column-parallel matmul takes ``copy(x)``: every rank holds the same
 ``x``, and the gradient reaching it from the rank's columns is one rank's
@@ -23,8 +27,9 @@ Every collective is a ``torch.distributed`` (``c10d``) call, which
 :class:`~repro_torch.distributed.comm.CollectiveCounter` counts where it is
 issued, which the fake process group of the dry-run answers on ``meta``
 tensors, and which gloo runs on CUDA tensors (all-reduce, all-gather into a
-tensor and the single-tensor all-to-all; gloo has no list all-to-all for
-them, and none is used).
+tensor and the single-tensor all-to-all; gloo has no list all-to-all and no
+reduce-scatter for them: a reduce-scatter there is the single-tensor
+all-to-all of the slices and a local sum, which moves the same bytes).
 """
 
 from __future__ import annotations
@@ -66,6 +71,22 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.empty((m * lead.shape[0], *lead.shape[1:]), dtype=x.dtype,
                       device=x.device)
     dist.all_gather_into_tensor(out, lead, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of the ranks' ``x``, this rank's slice along
+    ``dim``, in ``x``'s dtype."""
+    m = dist.get_world_size(group)
+    lead = x.movedim(dim, 0).contiguous()
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        recv = torch.empty_like(lead)
+        dist.all_to_all_single(recv, lead, group=group)
+        out = recv.unflatten(0, (m, -1)).sum(0)
+    else:
+        out = torch.empty((lead.shape[0] // m, *lead.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, lead, group=group)
     return out.movedim(0, dim)
 
 
@@ -114,6 +135,26 @@ class _Gather(torch.autograd.Function):
         return _slice(grad, ctx.dim, ctx.group), None, None
 
 
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, over):
+        ctx.dim, ctx.group, ctx.over = dim, group, over
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.over is None:  # every rank computed the whole batch's gradient
+            return _slice(grad, ctx.dim, ctx.group), None, None, None
+        n = dist.get_world_size(ctx.group)
+        for g in ctx.over:
+            n *= dist.get_world_size(g)
+        # summed and divided in fp32, rounded once to the parameter's dtype
+        out = _reduce_scatter(grad.float(), ctx.dim, ctx.group)
+        for g in ctx.over:
+            dist.all_reduce(out, group=g)
+        return out.div_(n).to(grad.dtype), None, None, None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -155,6 +196,20 @@ def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` in rank order; the
     gradient's slice of this rank back."""
     return x if group is None else _Gather.apply(x, _dim(x, dim), group)
+
+
+def gather_data(x: torch.Tensor, dim: int, group, over=None) -> torch.Tensor:
+    """A parameter's FSDP shard ``x`` gathered along ``dim`` over ``group``
+    (the ``data`` axis), in rank order. Backward, where the batch was split
+    over ``group`` and the other data axes ``over`` (process groups; empty
+    where there are none): the gradient divided by their ranks, summed over
+    them and cut to this rank's shard (a reduce-scatter over ``group``, an
+    all-reduce over each of ``over``), the data-parallel mean, summed and
+    divided in fp32 and rounded once to ``x``'s dtype (the one-device
+    step's gradient of a bf16 parameter is bf16 too). Where it was not
+    split (``over`` None): this rank's slice of the gradient, which every
+    rank computed whole."""
+    return _GatherData.apply(x, _dim(x, dim), group, over)
 
 
 def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:

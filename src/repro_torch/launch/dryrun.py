@@ -11,9 +11,10 @@ For each cell this script:
   3. runs the port's own mesh step (:mod:`repro_torch.train.mesh_step`) as
      rank 0, once, on ``meta`` inputs, counting the matmul flops
      (``FlopCounterMode``), the bytes every aten op reads and writes (views
-     free) and the collectives where the step issues them
+     free), the collectives where the step issues them
      (:class:`~repro_torch.distributed.comm.CollectiveCounter`, the hook a
-     real run is counted by);
+     real run is counted by) and the peak of the bytes the rank holds
+     alive (:class:`LiveBytes`);
   4. writes one JSON record to ``results/dryrun_torch/<mesh>/<arch>__<shape>.json``
      (or under ``--out``).
 
@@ -22,12 +23,15 @@ cell (``arch``, ``shape``, ``mesh``, ``chips``, ``fsdp``,
 ``quantized_moments``, ``microbatches``, ``remat``, ``tag``),
 ``memory.argument_size_in_bytes`` (the rank's bytes of the state, or of
 the parameters and cache, and of its inputs, under their placements),
+``memory.peak_live_bytes`` (the port's own key: the most bytes of storage
+alive at once while the step runs, the arguments included; the reference
+records XLA's ``temp_size_in_bytes`` instead),
 ``flops`` and ``bytes_accessed`` (the rank's, plus the argument bytes, as
 the reference's ``hlo_analysis`` counts them), ``collectives`` and
 ``collective_bytes_total`` (each op's result on the rank), the three
 roofline terms, ``bottleneck``, ``model_flops`` and ``useful_ratio``. It
 drops ``flops_hlo_raw``, ``bytes_hlo_raw``, ``compile_s``, ``lower_s`` and
-the other XLA memory-analysis fields: nothing is lowered or compiled, and
+the XLA memory-analysis fields: nothing is lowered or compiled, and
 ``launch/hlo_analysis.py``, which reads XLA's HLO text, stays with the
 reference. The step is tensor-parallel over ``model`` as the rules place
 the weights, so a rank's flops are its data-parallel share's with what is
@@ -59,6 +63,7 @@ import math
 import os
 import time
 import traceback
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -71,6 +76,7 @@ CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PEAK_FLOPS = 989e12   # dense bf16 a card
 HBM_BW = 3.35e12      # bytes/s a card
 LINK_BW = 450e9       # NVLink, bytes/s a direction a card
+HBM_BYTES = 80e9      # the card's memory, 80 GB
 
 
 def _tensors(x, out: list) -> list:
@@ -107,6 +113,44 @@ class OpTraffic(TorchDispatchMode):
         return out
 
 
+class LiveBytes(TorchDispatchMode):
+    """The bytes of storage alive inside it, and their peak: every storage
+    an op returns counts its bytes once, from the op until it is freed (a
+    weakref finalizer on the storage), on top of the storages of the
+    tensors given to :meth:`hold` (the step's arguments). A DTensor counts
+    its local shard."""
+
+    def __init__(self):
+        super().__init__()
+        self.live: dict[int, int] = {}
+        self.now = 0
+        self.peak = 0
+
+    def hold(self, tensors) -> None:
+        for t in tensors:
+            self._add(t)
+
+    def _add(self, t: torch.Tensor) -> None:
+        local = getattr(t, "_local_tensor", None)
+        st = (t if local is None else local).untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return
+        self.live[key] = st.nbytes()
+        self.now += self.live[key]
+        self.peak = max(self.peak, self.now)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.now -= self.live.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out, []):
+            self._add(t)
+        return out
+
+
 def _local_bytes(tree, shardings) -> int:
     from repro_torch.tree import leaves_with_paths
 
@@ -121,8 +165,8 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
     """Run the port's mesh step of ``cfg`` for one ``shape`` (a
     ``ShapeConfig``) as rank 0 of a fake process group of ``world`` ranks,
     on the mesh ``make_mesh(device_type)`` builds over it, on ``meta``
-    tensors; return the rank's argument bytes, matmul flops, op bytes and
-    collectives."""
+    tensors; return the rank's argument bytes, peak live bytes, matmul
+    flops, op bytes and collectives."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.distributed.comm import CollectiveCounter
@@ -136,6 +180,7 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
                                              make_mesh_prefill_step,
                                              make_mesh_train_step)
     from repro_torch.train.state import make_abstract_state, state_shardings
+    from repro_torch.tree import leaves
 
     with fake_process_group(world):
         mesh = make_mesh("cpu")
@@ -150,6 +195,7 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
             step = make_mesh_train_step(cfg, opt, mesh, sh, microbatches=microbatches,
                                         remat=remat)
             run = lambda: step(state, inputs)  # noqa: E731
+            args = [state, inputs]
         else:
             aparams = abstract_params(cfg)
             p_sh = param_shardings(aparams, mesh, cfg, fsdp)
@@ -158,6 +204,7 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
             if shape.kind == "prefill":
                 step = make_mesh_prefill_step(cfg, mesh, max_seq=shape.seq_len)
                 run = lambda: step(params, inputs)  # noqa: E731
+                args = [params, inputs]
             else:
                 acache = cache_specs(cfg, shape)
                 c_sh = cache_specs_tree(acache, mesh, cfg, shape)
@@ -165,10 +212,13 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
                 cache = place_tree(acache, c_sh, meta=True)
                 step = make_mesh_decode_step(cfg, mesh)
                 run = lambda: step(params, cache, inputs)  # noqa: E731
+                args = [params, cache, inputs]
         with CollectiveCounter() as cc, FlopCounterMode(display=False) as fc, \
-                OpTraffic() as traffic:
+                OpTraffic() as traffic, LiveBytes() as live:
+            live.hold(t for a in args for t in leaves(a))
+            del args
             run()
-    return {"argument_size_in_bytes": int(arg_bytes),
+    return {"argument_size_in_bytes": int(arg_bytes), "peak_live_bytes": live.peak,
             "flops": float(fc.get_total_flops()), "op_bytes": int(traffic.bytes),
             "ops": traffic.ops, "collectives": dict(cc.bytes),
             "collective_calls": dict(cc.calls),
@@ -217,7 +267,7 @@ def analyze_cell(arch: str, shape_name: str, multi_pod: bool = False,
                         fsdp=fsdp, quantized=quantized, microbatches=microbatches,
                         remat=remat)
     record["trace_s"] = round(time.perf_counter() - t0, 2)
-    record["memory"] = {"argument_size_in_bytes": traced["argument_size_in_bytes"]}
+    record["memory"] = {k: traced[k] for k in ("argument_size_in_bytes", "peak_live_bytes")}
     record["flops"] = traced["flops"]
     record["bytes_accessed"] = traced["op_bytes"] + traced["argument_size_in_bytes"]
     record["collectives"] = traced["collectives"]
@@ -261,6 +311,13 @@ def run_cell(arch: str, shape: str, multi_pod: bool, skip_done: bool,
     return rec
 
 
+def fits(rec: dict) -> str:
+    """A record's peak live bytes a rank, and whether they fit the card."""
+    peak = rec["memory"]["peak_live_bytes"]
+    return (f"peak={peak / 1e9:.2f}GB "
+            f"{'fits' if peak <= HBM_BYTES else 'over'} {HBM_BYTES / 1e9:.0f}GB")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
                                  description=__doc__.splitlines()[0])
@@ -286,7 +343,7 @@ def main(argv=None) -> None:
         status = ("ERROR " + rec["error"]) if "error" in rec else (
             f"ok {rec['bottleneck']:>10s} comp={rec['t_compute_s']:.4f}s "
             f"mem={rec['t_memory_s']:.4f}s coll={rec['t_collective_s']:.4f}s "
-            f"(traced in {rec.get('trace_s', 0):.0f}s)")
+            f"{fits(rec)} (traced in {rec.get('trace_s', 0):.0f}s)")
         print(f"[{rec['mesh']}] {arch:24s} {shape:12s} {status}", flush=True)
         if not args.all and "error" not in rec:
             print("memory:", json.dumps(rec["memory"], indent=1))

@@ -26,21 +26,26 @@ from repro_torch.models.transformer import (abstract_cache, abstract_params,
                                             torch_dtype)
 
 
-def get_memory(params, batch: dict, cfg: ArchConfig):
+def get_memory(params, batch: dict, cfg: ArchConfig, fetch=None):
     """Resolve the cross-attention memory for encdec/vlm families."""
     if cfg.family == "encdec":
-        return encoder_forward(params, batch["enc_embed"], cfg)
+        return encoder_forward(params, batch["enc_embed"], cfg, fetch=fetch)
     if cfg.family == "vlm":
         return batch["vision_embed"]
     return None
 
 
-def model_forward(params, batch: dict, cfg: ArchConfig, remat: bool = True):
-    memory = get_memory(params, batch, cfg)
-    return forward(params, batch["tokens"], cfg, memory=memory, remat=remat)
+def model_forward(params, batch: dict, cfg: ArchConfig, remat: bool = True,
+                  fetch=None):
+    """The logits; ``fetch`` as in :mod:`repro_torch.models.transformer`:
+    each block's parameters through it where the block runs, the leaves
+    outside the blocks as given."""
+    memory = get_memory(params, batch, cfg, fetch)
+    return forward(params, batch["tokens"], cfg, memory=memory, remat=remat,
+                   fetch=fetch)
 
 
-def loss_fn(params, batch: dict, cfg: ArchConfig, remat: bool = True):
+def loss_fn(params, batch: dict, cfg: ArchConfig, remat: bool = True, fetch=None):
     """Token-mean cross entropy in f32 (stable logsumexp). Differentiable:
     :mod:`repro_torch.train.train_step` takes its gradients with
     ``torch.autograd.grad``; ``remat`` as in :func:`forward
@@ -48,8 +53,9 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, remat: bool = True):
     rank's vocabulary columns (a head split over ``model``), it is the
     vocabulary-parallel cross entropy: the max, the sum of exponentials and
     the target's logit are all-reduced over ``model``, and no rank forms
-    the whole (B, S, V) logits."""
-    logits = model_forward(params, batch, cfg, remat=remat).float()
+    the whole (B, S, V) logits. ``fetch`` as in :func:`model_forward`:
+    each block's parameters through it where the block runs."""
+    logits = model_forward(params, batch, cfg, remat=remat, fetch=fetch).float()
     targets = batch["targets"].long()
     if logits.shape[-1] < cfg.vocab_size:
         return _vocab_parallel_xent(logits, targets)
@@ -73,13 +79,15 @@ def _vocab_parallel_xent(logits, targets):
     return (torch.log(sumexp) - gold).mean()
 
 
-def serve_prefill(params, batch: dict, cfg: ArchConfig, max_seq: int | None = None):
-    memory = get_memory(params, batch, cfg)
-    return prefill(params, batch["tokens"], cfg, memory=memory, max_seq=max_seq)
+def serve_prefill(params, batch: dict, cfg: ArchConfig, max_seq: int | None = None,
+                  fetch=None):
+    memory = get_memory(params, batch, cfg, fetch)
+    return prefill(params, batch["tokens"], cfg, memory=memory, max_seq=max_seq,
+                   fetch=fetch)
 
 
-def serve_decode(params, cache, batch: dict, cfg: ArchConfig):
-    return decode_step(params, cache, batch["token"], cfg)
+def serve_decode(params, cache, batch: dict, cfg: ArchConfig, fetch=None):
+    return decode_step(params, cache, batch["token"], cfg, fetch=fetch)
 
 
 # --------------------------------------------------------------- input specs

@@ -16,6 +16,16 @@ looked up from the rank's rows (vocabulary-parallel: a masked lookup,
 then an all-reduce) or columns (then an all-gather), ``forward`` returns
 the rank's vocabulary columns of the logits where the head is split by
 vocabulary, and ``prefill``/``decode_step`` gather them whole.
+
+Each entry point takes ``fetch`` (None by default, and then nothing
+changes): ``fetch(tree, stack)`` maps a block's tree of rank-local shards,
+taken from the stacked subtree ``stack`` (``"blocks"`` or
+``"enc_blocks"``), to the tree the block computes on. The mesh steps
+(:mod:`repro_torch.train.mesh_step`) gather a block's FSDP shards there, as
+the reference's ``lax.scan`` over the stacked blocks lets GSPMD gather one
+block's inside the loop body, and drop them once the block has run. The
+leaves outside the blocks (embedding, head, final norms) are taken as
+given: the mesh steps gather those once, for the whole step.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssd_apply, ssd_deco
 Params = dict[str, Any]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+#: the parameter subtrees whose leaves carry a leading block axis
+STACKS = ("blocks", "enc_blocks")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -51,12 +63,16 @@ def block_at(tree: Params, i: int) -> Params:
             for k, v in tree.items()}
 
 
-def unstack_blocks(tree: Params) -> list[Params]:
+def unstack_blocks(tree: Params | list[Params]) -> list[Params]:
     """The blocks of a tree whose leaves carry a leading block axis, as
     views: one ``unbind`` a leaf. Under autograd the blocks' gradients then
     reach each stacked leaf in one stack, where a ``block_at`` view per
     block would add a zero-filled gradient of the whole stacked leaf per
-    block (n^2 in the leaf's size)."""
+    block (n^2 in the leaf's size). A list of the blocks' trees is already
+    unstacked, and is returned as it is (the mesh train step gives each
+    block's leaves as autograd leaves of their own)."""
+    if isinstance(tree, list):
+        return tree
     cols = {k: unstack_blocks(v) if isinstance(v, dict) else torch.unbind(v)
             for k, v in tree.items()}
     n = len(next(iter(cols.values())))
@@ -176,11 +192,14 @@ def _remat(fn, *args):
 
 
 # ------------------------------------------------------------------ encoder
-def encoder_forward(params, enc_embed, cfg: ArchConfig):
+def encoder_forward(params, enc_embed, cfg: ArchConfig, fetch=None):
     """Whisper-style bidirectional encoder over stub frame embeddings. Each
-    layer is rematerialised under autograd, as the reference's always is."""
+    layer is rematerialised under autograd, as the reference's always is,
+    ``fetch`` (of ``"enc_blocks"``) inside it."""
 
     def layer(x, lp):
+        if fetch is not None:
+            lp = fetch(lp, "enc_blocks")
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         x = x + attention(lp["attn"], h, h, cfg, causal=False, window=None,
                           cap=None)
@@ -270,15 +289,22 @@ def whole_logits(logits, cfg: ArchConfig) -> torch.Tensor:
     return logits
 
 
-def forward(params, tokens, cfg: ArchConfig, memory=None, remat: bool = True):
+def forward(params, tokens, cfg: ArchConfig, memory=None, remat: bool = True,
+            fetch=None):
     """Full-sequence logits: tokens (B, S) int32 -> (B, S, V). With
     ``remat`` each block keeps only its input for the backward pass and
     recomputes the rest (the reference's ``jax.checkpoint`` of the block);
     the values are the same either way. Gradients reach the stacked leaves
-    through each block's views (:func:`unstack_blocks`)."""
+    through each block's views (:func:`unstack_blocks`). ``fetch`` runs
+    inside the block: under ``remat`` the recompute fetches again and what
+    it returns is not kept for the backward pass; without ``remat``
+    autograd keeps every block's fetched tree (each block's gathered
+    weights) until the backward pass."""
     plan = block_plan(cfg)
 
     def block(x, bp):
+        if fetch is not None:
+            bp = fetch(bp, "blocks")
         for i, sub in enumerate(plan):
             x = _apply_sublayer(x, bp[f"l{i}"], sub, cfg, memory)
         return x
@@ -332,18 +358,21 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> Params:
 
 
 # ------------------------------------------------------------------- decode
-def decode_step(params, cache, token, cfg: ArchConfig, memory=None):
+def decode_step(params, cache, token, cfg: ArchConfig, memory=None, fetch=None):
     """One decode step: token (B, 1) int32, cache from init_cache/prefill.
 
     Returns (logits (B, V), cache). The blocks' caches are written in
     place, one slot or state per sublayer through its view of the stacked
     leaf, and the cache returned holds the same tensors with ``pos`` + 1;
-    clone the cache first to keep the one passed in."""
+    clone the cache first to keep the one passed in. ``fetch`` maps each
+    block's parameters before it runs."""
     plan = block_plan(cfg)
     pos = cache["pos"]
     x = embed(params, token, cfg)
     for b in range(cfg.n_blocks):
         bp = block_at(params["blocks"], b)
+        if fetch is not None:
+            bp = fetch(bp, "blocks")
         bc = block_at(cache["blocks"], b)
         for i, sub in enumerate(plan):
             lp, lc = bp[f"l{i}"], bc[f"l{i}"]
@@ -384,13 +413,13 @@ def _cross_decode(lp, h, lc, cfg):
 
 
 # ------------------------------------------------------------------ prefill
-def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None):
+def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None, fetch=None):
     """Process a prompt, returning (last-position logits, filled caches).
 
     Caches are built by re-projecting K/V per block (the attention itself is
     the chunked path from `forward`). SSM blocks return their final state.
     The logits are those of position S-1 of every row, padding or not, as
-    in the reference.
+    in the reference. ``fetch`` maps each block's parameters before it runs.
     """
     B, S = tokens.shape
     max_seq = max_seq or S
@@ -400,6 +429,8 @@ def prefill(params, tokens, cfg: ArchConfig, memory=None, max_seq=None):
     caches = []
     for b in range(cfg.n_blocks):
         bp = block_at(params["blocks"], b)
+        if fetch is not None:
+            bp = fetch(bp, "blocks")
         cache: Params = {}
         for i, sub in enumerate(plan):
             lp = bp[f"l{i}"]

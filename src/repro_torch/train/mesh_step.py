@@ -4,9 +4,14 @@ DTensor shards by the reference's rules, the steps data-parallel over
 
 The train step (:func:`make_mesh_train_step`) on every rank:
 
-1. all-gathers each parameter leaf over the data axes only (its FSDP
-   shards); a leaf the rules shard over ``model`` stays the rank's shard,
-   and is never gathered over ``model``;
+1. computes on each rank's shard of every parameter leaf, with the FSDP
+   shards (a leaf the rules shard over ``data``) gathered over ``data``
+   only, by :func:`~repro_torch.distributed.tp.gather_data`: a block's
+   leaves inside the block, where it runs (the model's ``fetch``, in the
+   forward pass and again in remat's recompute, and dropped after each),
+   the leaves outside the blocks once a microbatch. A leaf the
+   rules shard over ``model`` stays the rank's shard, and is never
+   gathered over ``model``;
 2. takes the rank's share of the batch: the global batch (every rank holds
    it, since the data order is a function of the step) cut by
    :func:`~repro_torch.distributed.sharding.batch_specs`, microbatch by
@@ -19,11 +24,17 @@ The train step (:func:`make_mesh_train_step`) on every rank:
    and the loss is the vocabulary-parallel cross entropy. The gradient of
    a ``model``-sharded leaf is the rank's shard; that of a replicated leaf
    comes out equal on every rank of a ``model`` group. MoE layers route
-   over the whole batch (:func:`~repro_torch.models.layers.split_batch`);
+   over the whole batch (:func:`~repro_torch.models.layers.split_batch`).
+   Each block's slice of a stacked leaf is an autograd leaf of its own, so
+   its gradient comes a block at a time, and an FSDP leaf's is never
+   stacked: its moments and parameter are updated a block at a time too;
 4. averages the gradients over the data axes straight into each moment
-   leaf's placement (a reduce-scatter into the ZeRO shard, DTensor's
-   ``Partial`` -> ``Shard``; a ``c10d`` all-reduce where the moment is
-   replicated over them), and the loss over the same ranks;
+   leaf's placement, and the loss over the same ranks. An FSDP leaf's
+   gradient arrives so from the gather's backward, already the rank's
+   shard (a reduce-scatter over ``data``, as its moments are placed); the
+   others take a reduce-scatter into the ZeRO shard (DTensor's ``Partial``
+   -> ``Shard``), or a ``c10d`` all-reduce where the moment is replicated
+   over the data axes;
 5. clips by the global norm (one all-reduce of the leaves' sums of squares)
    and updates each rank's shards with AdamW; a moment shard finer than
    its parameter's placement updates that slice of the parameter, and the
@@ -33,14 +44,19 @@ The train step (:func:`make_mesh_train_step`) on every rank:
    ``model``-sharded gradient is gathered over ``model`` (the gradient, not
    the parameter), the moments and the Adam step are computed for the
    whole leaf, and each rank applies the step's slice to its parameter
-   shard and keeps its rows.
+   shard and keeps its rows (an FSDP leaf's gradient gathered back over
+   ``data`` for it).
+
+The prefill and decode steps gather each block's FSDP shards where the
+block runs and drop them after it, and the other leaves' once a call.
 
 A mesh axis of one rank is never redistributed over: a shard over it is
 the whole, so the steps issue no DTensor collective there (gloo runs no
 functional collective on CUDA tensors). Over a data axis of more than one
-rank, the gradients of leaves whose moments it replicates are summed and
-the decode's logits gathered by ``c10d`` calls, so a state that no rule
-shards over ``data`` trains and serves over gloo on CUDA tensors too.
+rank, the FSDP shards are gathered and their gradients reduced, the
+gradients of leaves whose moments it replicates summed and the decode's
+logits gathered by ``c10d`` calls, so a state whose moments no rule shards
+finer than its parameters trains and serves over gloo on CUDA tensors too.
 Every share is the same size (``batch_specs`` splits only what divides),
 so the mean of the ranks' token means is the one-device loss, and the step
 gives the one-device step's values up to the order of its sums.
@@ -60,12 +76,11 @@ from repro_torch.distributed.sharding import (batch_specs, cache_specs_tree,
                                               use_mesh)
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig, ShapeConfig
-from repro_torch.models.model import serve_decode, serve_prefill
-from repro_torch.models.transformer import abstract_cache
+from repro_torch.models.model import loss_fn, serve_decode, serve_prefill
+from repro_torch.models.transformer import STACKS, abstract_cache, unstack_blocks
 from repro_torch.optim.adamw import (AdamWConfig, apply_step, cosine_schedule,
                                      moment_step, param_nodes, step_scalars)
-from repro_torch.train.train_step import loss_and_grads
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, leaves_with_paths, tree_map
 
 
 def full_tensor(dt) -> torch.Tensor:
@@ -102,10 +117,43 @@ def _on_model(mesh, placements) -> list:
             for name, p in zip(mesh_shape(mesh), placements)]
 
 
-def _gather_data(dt) -> torch.Tensor:
-    """The rank's ``model`` shard of a parameter, its FSDP shards gathered
-    over the data axes."""
-    return _to(dt, _on_model(dt.device_mesh, dt.placements))
+def _fsdp_dim(mesh, placements) -> int | None:
+    """The tensor dim of a parameter that its FSDP shards split over
+    ``data`` (an axis of more than one rank), or None."""
+    sizes = mesh_shape(mesh)
+    if sizes.get("data", 1) == 1:
+        return None
+    p = placements[list(sizes).index("data")]
+    return p.dim if p.is_shard() else None
+
+
+def _fsdp(mesh, params, split: bool = False):
+    """``(gather, fetch)`` for the DTensor tree ``params``, each gathering
+    FSDP shards over ``data`` (:func:`~repro_torch.distributed.tp.gather_data`)
+    and passing the other leaves as they are (where no leaf is
+    FSDP-sharded, the identity and None): ``gather`` maps a tree of the
+    rank's local tensors to one whose leaves outside the stacked blocks
+    are gathered, once for the call; ``fetch`` is the model's
+    (:mod:`repro_torch.models.transformer`), a block's leaves where the
+    block runs. Backward, an FSDP leaf's gradient comes back as the rank's
+    shard: averaged over the data axes where the batch was ``split``, the
+    rank's slice of it where not."""
+    dims = tree_map(lambda dt: _fsdp_dim(mesh, dt.placements), params)
+    if all(d is None for d in leaves(dims)):
+        return (lambda tree: tree), None
+    data = mesh.get_group("data")
+    over = [mesh.get_group(a) for a in dp_axes(mesh) if a != "data"] if split else None
+
+    def one(t, d, lead=0):  # a block's leaves lack the stacked dim
+        return t if d is None else tp.gather_data(t, d - lead, data, over)
+
+    def gather(tree):
+        return {k: v if k in STACKS else tree_map(one, v, dims[k]) for k, v in tree.items()}
+
+    def fetch(tree, stack):
+        return tree_map(lambda t, d: one(t, d, 1), tree, dims[stack])
+
+    return gather, fetch
 
 
 def _share(batch: dict, mesh) -> tuple[dict, bool]:
@@ -140,6 +188,27 @@ def _model_dim(placements, names) -> int | None:
     return p.dim if p.is_shard() else None
 
 
+def _stacked(path: str) -> bool:
+    return path.split("/")[0] in STACKS
+
+
+def _block_leaves(shards: dict) -> tuple[dict, list, list]:
+    """``shards`` (a parameter tree of local tensors) with every leaf a new
+    autograd leaf viewing it, and each stacked subtree a list of its
+    blocks' trees (which the model takes as the stack); those leaves, and
+    beside each its parameter's path, block after block."""
+    tree, flat, paths = {}, [], []
+    for k in sorted(shards):
+        parts = unstack_blocks(shards[k]) if k in STACKS else [shards[k]]
+        parts = [tree_map(lambda t: t.detach().requires_grad_(), b) for b in parts]
+        tree[k] = parts if k in STACKS else parts[0]
+        for b in parts:
+            for path, t in leaves_with_paths(b, k):
+                flat.append(t)
+                paths.append(path)
+    return tree, flat, paths
+
+
 def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dict,
                          microbatches: int = 1, remat: bool = True,
                          schedule_total: int = 10_000):
@@ -150,53 +219,87 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
     mean over the whole batch) and ``lr_scale`` as plain tensors."""
     p_sh = [s for (s,) in param_nodes(shardings["params"])]
     m_sh = [s for _, s in param_nodes(shardings["params"], shardings["opt"]["m"])]
+    fsdp = [_fsdp_dim(mesh, s.placements()) for s in p_sh]
+    # an FSDP block leaf's gradient and AdamW update go a block at a time
+    by_block = [fd is not None and not opt.quantized_moments and _stacked(p)
+                for (p, _), fd in zip(leaves_with_paths(shardings["params"]), fsdp)]
     names = list(mesh_shape(mesh))
     dp = dp_axes(mesh)
     group = tp.group_of(mesh)
 
     def grads_of(params, batch):
-        """The loss and gradients of the rank's share, summed over
-        microbatches in fp32 as ``make_train_step`` does, and whether the
-        batch was split."""
-        if microbatches == 1:
-            share, split = _share(batch, mesh)
-            with layers.split_batch(_dp_groups(mesh) if split else []):
-                loss, grads = loss_and_grads(params, share, cfg, remat)
-            return loss, leaves(grads), split
-        loss, acc, split = None, None, False
-        for i in range(microbatches):
-            def part(x):
-                b = x.shape[0]
-                if b % microbatches:
-                    raise ValueError(f"batch {b} is not a multiple of "
-                                     f"{microbatches} microbatches")
-                n = b // microbatches
-                return x[i * n : (i + 1) * n]
+        """The loss and gradients of the rank's share of ``batch`` for the
+        DTensor tree ``params``, summed over microbatches in fp32 as
+        ``make_train_step`` does, and whether the batch was split. An FSDP
+        leaf's gradient is the rank's shard, already averaged over the data
+        axes where the batch was split (:func:`_fsdp`); where
+        ``by_block``, it is the list of its blocks' gradients, and the
+        other stacked leaves' are stacked."""
+        tree, flat, paths = _block_leaves(tree_map(local, params))
 
-            share, split = _share({k: part(v) for k, v in batch.items()}, mesh)
-            with layers.split_batch(_dp_groups(mesh) if split else []):
-                loss_mb, g = loss_and_grads(params, share, cfg, remat)
-            if acc is None:
-                loss = torch.zeros((), dtype=torch.float32, device=loss_mb.device)
-                acc = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-                       for x in leaves(g)]
-            loss = loss + loss_mb
-            for a, x in zip(acc, leaves(g)):
-                a.add_(x)
-        return loss / microbatches, [a / microbatches for a in acc], split
+        def one(part):
+            share, split = _share(part, mesh)
+            with torch.enable_grad(), \
+                    layers.split_batch(_dp_groups(mesh) if split else []):
+                gather, fetch = _fsdp(mesh, params, split)
+                loss = loss_fn(gather(tree), share, cfg, remat, fetch)
+                grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                            materialize_grads=True)
+            return loss.detach(), list(grads), split
+
+        if microbatches == 1:
+            loss, grads, split = one(batch)
+        else:
+            loss, acc, split = None, None, False
+            for i in range(microbatches):
+                def part(x):
+                    b = x.shape[0]
+                    if b % microbatches:
+                        raise ValueError(f"batch {b} is not a multiple of "
+                                         f"{microbatches} microbatches")
+                    n = b // microbatches
+                    return x[i * n : (i + 1) * n]
+
+                loss_mb, g, split = one({k: part(v) for k, v in batch.items()})
+                if acc is None:
+                    loss = torch.zeros((), dtype=torch.float32, device=loss_mb.device)
+                    acc = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                           for x in g]
+                loss = loss + loss_mb
+                for a, x in zip(acc, g):
+                    a.add_(x)
+                del g
+            loss, grads = loss / microbatches, [a.div_(microbatches) for a in acc]
+            del acc
+        of: dict = {}
+        for path, g in zip(paths, grads):
+            of.setdefault(path, []).append(g)
+        del grads
+        out = []
+        for (path, _), keep in zip(leaves_with_paths(params), by_block):
+            g = of.pop(path)
+            out.append(g if keep else torch.stack(g) if _stacked(path) else g[0])
+        return loss, out, split
 
     @torch.no_grad()
     def update(state, grads, split: bool):
-        """Average ``grads`` (the rank's ``model`` shards) into the
-        moments' placements, clip by the global norm and update every
-        rank's shards in place."""
+        """Average ``grads`` (the rank's ``model`` shards; an FSDP leaf's
+        its shard, averaged already) into the moments' placements, clip by
+        the global norm and update every rank's shards in place."""
         n = math.prod(mesh_shape(mesh)[a] for a in dp) if split else 1
         reduced, sq = [], []
-        for g, ps, ms in zip(grads, p_sh, m_sh):
+        for g, ps, ms, fd in zip(grads, p_sh, m_sh, fsdp):
             on_model = _on_model(mesh, ps.placements())
             g_in = [Partial() if split and a in dp else p for a, p in zip(names, on_model)]
             to = on_model if opt.quantized_moments else list(ms.placements())
-            if split and all(p.is_replicate() for a, p in zip(names, to) if a in dp):
+            if fd is not None:
+                # averaged into the rank's shard by the gather's backward; its
+                # moments have the parameter's placement (the q8 path takes
+                # the leaf's model shard whole)
+                if opt.quantized_moments:
+                    g = tp.gather(g, fd, mesh.get_group("data"))
+                reduced.append(g)
+            elif split and all(p.is_replicate() for a, p in zip(names, to) if a in dp):
                 # Partial -> Replicate over the data axes: the c10d all-reduce,
                 # which gloo also runs on CUDA tensors
                 reduced.append(_sum_over((g.float() / n).contiguous(), _dp_groups(mesh)))
@@ -205,7 +308,8 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
                                         _same(mesh, to, g_in), run_check=False)
                 reduced.append(_to(gd, to))
             r = _replicas(mesh, to)
-            s = torch.sum(torch.square(reduced[-1]))
+            parts = reduced[-1] if isinstance(reduced[-1], list) else [reduced[-1]]
+            s = sum(torch.sum(torch.square(x.float())) for x in parts)
             sq.append(s / r if r > 1 else s)
         sq = torch.stack(sq)
         dist.all_reduce(sq)  # each shard counted once over the world
@@ -215,6 +319,12 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
         clip, bc1, bc2, lr = step_scalars(local(count), gnorm, opt, lr_scale)
         nodes = param_nodes(state["params"], state["opt"]["m"], state["opt"]["v"])
         for (p, m, v), g, ps, ms in zip(nodes, reduced, p_sh, m_sh):
+            if isinstance(g, list):  # block by block, on views of the shards
+                for i, gi in enumerate(g):
+                    apply_step(local(p)[i], moment_step(gi, local(m)[i], local(v)[i],
+                                                        gi.shape, clip, bc1, bc2, opt),
+                               lr, opt)
+                continue
             if opt.quantized_moments:
                 # the leaf whole: its gradient gathered over model, its q8
                 # rows over data; the step's slice applied to the shard
@@ -241,9 +351,8 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
         return count, lr_scale
 
     def train_step(state, batch):
-        params = tree_map(_gather_data, state["params"])
         with use_mesh(mesh):
-            loss, grads, split = grads_of(params, batch)
+            loss, grads, split = grads_of(state["params"], batch)
         loss = loss.float()
         if split:
             n = math.prod(mesh_shape(mesh)[a] for a in dp)
@@ -270,18 +379,20 @@ def _rows(mesh, placements) -> list:
 
 def make_mesh_prefill_step(cfg: ArchConfig, mesh, max_seq: int | None = None):
     """``prefill_step(params, batch) -> (logits, cache)`` for parameters
-    placed on ``mesh``: their FSDP shards gathered, the rank's share of the
-    batch prefilled tensor-parallel over ``model``; the logits are the
-    share's (every vocabulary column), and the cache is DTensors placed by
+    placed on ``mesh``: their FSDP shards gathered a block at a time, the
+    rank's share of the batch prefilled tensor-parallel over ``model``; the
+    logits are the share's (every vocabulary column), and the cache is
+    DTensors placed by
     :func:`~repro_torch.distributed.sharding.cache_specs_tree`, each rank
     having written its own shard of every leaf."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        local_params = tree_map(_gather_data, params)
         share, split = _share(batch, mesh)
         with use_mesh(mesh), layers.split_batch(_dp_groups(mesh) if split else []):
-            logits, cache = serve_prefill(local_params, share, cfg, max_seq=max_seq)
+            gather, fetch = _fsdp(mesh, params)
+            logits, cache = serve_prefill(gather(tree_map(local, params)), share, cfg,
+                                          max_seq=max_seq, fetch=fetch)
         B, S = batch["tokens"].shape
         seq = max_seq or S
         specs = cache_specs_tree(abstract_cache(cfg, B, seq), mesh, cfg,
@@ -302,19 +413,20 @@ def make_mesh_prefill_step(cfg: ArchConfig, mesh, max_seq: int | None = None):
 def make_mesh_decode_step(cfg: ArchConfig, mesh):
     """``decode_step(params, cache, batch) -> (logits, cache)`` for
     parameters and a cache placed on ``mesh``: the parameters' FSDP shards
-    gathered, one token of the rank's batch rows decoded tensor-parallel
-    over ``model`` against the rank's shard of the cache, written in place
-    (a cache split over a data axis along its sequence is gathered for the
-    step and cut back), and the logits gathered over the data axes
-    (replicated, as the reference's ``out_shardings``)."""
+    gathered a block at a time, one token of the rank's batch rows decoded
+    tensor-parallel over ``model`` against the rank's shard of the cache,
+    written in place (a cache split over a data axis along its sequence is
+    gathered for the step and cut back), and the logits gathered over the
+    data axes (replicated, as the reference's ``out_shardings``)."""
 
     @torch.no_grad()
     def decode_step(params, cache, batch):
-        local_params = tree_map(_gather_data, params)
         share, split = _share(batch, mesh)
         work = tree_map(lambda dt: _to(dt, _rows(mesh, dt.placements)), cache)
         with use_mesh(mesh), layers.split_batch(_dp_groups(mesh) if split else []):
-            logits, work = serve_decode(local_params, work, share, cfg)
+            gather, fetch = _fsdp(mesh, params)
+            logits, work = serve_decode(gather(tree_map(local, params)), work, share, cfg,
+                                        fetch=fetch)
         for w, dt in zip(leaves(work), leaves(cache)):
             if w is local(dt):
                 continue  # written in place

@@ -114,11 +114,19 @@ def initial_state(cfg, opt):
     return state
 
 
-def batches(cfg, steps: int) -> list[dict]:
+def batches(cfg, steps: int, batch: int = BATCH) -> list[dict]:
     from repro_torch.models.model import demo_batch
 
-    return [demo_batch(cfg, BATCH, SEQ, kind="train", seed=s, device="cpu")
+    return [demo_batch(cfg, batch, SEQ, kind="train", seed=s, device="cpu")
             for s in range(steps)]
+
+
+def by_axis(cc, mesh) -> dict:
+    """A collective counter's calls by ``(mesh axis, kind)`` and its
+    all-gathers' result shapes by axis, for the axes of ``mesh``."""
+    axis = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+    return {"calls": {(axis.get(g, g), k): n for (g, k), n in cc.by_group.items()},
+            "gathered": [(axis.get(g, g), s) for g, s in cc.gathered]}
 
 
 def train_worker(rank, world, out_dir, cfg, jobs):
@@ -230,6 +238,176 @@ def serve_worker(rank, world, out_dir, jobs):
                        os.path.join(out_dir, f"{name}-decode.pt"))
 
 
+def one_device_run(cfg, steps: int, microbatches: int = 1, batch: int = BATCH,
+                   bound: float = 1e-4) -> list[dict]:
+    """The one-device run's loss and state after each of ``steps`` fp32
+    steps, and each parameter's allowance: lr x the change of the Adam step
+    m/(sqrt(v) + eps) for a gradient change of ``bound`` of the leaf's
+    largest gradient, summed over the steps (Adam divides each entry by its
+    own magnitude, so where the gradient nearly cancels the step follows
+    its last digits, which a mesh's order of sums sets apart)."""
+    from repro_torch.optim.adamw import AdamWConfig, cosine_schedule, param_nodes
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths, tree_map
+
+    opt = AdamWConfig()
+    state = initial_state(cfg, opt)
+    step = make_train_step(cfg, opt, microbatches=microbatches)
+    out, allowance = [], {}
+    for b in batches(cfg, steps, batch):
+        n = batch // microbatches
+        grads = None
+        for i in range(microbatches):
+            _, g = loss_and_grads(state["params"], {k: v[i * n:(i + 1) * n]
+                                                    for k, v in b.items()}, cfg)
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+        grads = tree_map(lambda g: g.double() / microbatches, grads)
+        norm = sum(float(g.square().sum()) for g in leaves(grads)) ** 0.5
+        clip = min(1.0, opt.grad_clip / (norm + 1e-9))
+        count = int(state["opt"]["count"]) + 1
+        bc1, bc2 = 1 - opt.b1 ** count, 1 - opt.b2 ** count
+        lr = opt.lr * float(cosine_schedule(state["step"]))
+        nodes = param_nodes(state["params"], state["opt"]["m"], state["opt"]["v"], grads)
+        for (path, _), (_, m, v, g) in zip(leaves_with_paths(state["params"]), nodes):
+            g, m, v = g * clip, m.double(), v.double()
+
+            def adam(x, m=m, v=v):
+                return ((opt.b1 * m + (1 - opt.b1) * x) / bc1) / (
+                    torch.sqrt((opt.b2 * v + (1 - opt.b2) * x * x) / bc2) + opt.eps)
+
+            d = bound * float(g.abs().max())
+            more = lr * torch.maximum((adam(g + d) - adam(g)).abs(), (adam(g - d) - adam(g)).abs())
+            allowance[path] = allowance[path] + more if path in allowance else more
+        state, metrics = step(state, b)
+        out.append({"loss": float(metrics["loss"]), "state": tree_map(torch.clone, state),
+                    "allowance": dict(allowance)})
+    return out
+
+
+def fsdp_train_worker(rank, world, out_dir, cfg, jobs, bound: float = 1e-4):
+    """For each job ``(name, (data, model), remat, microbatches, rows)``:
+    the state placed by ``state_shardings`` with FSDP and trained two steps
+    of ``rows``-row batches, the first under the collective counter; after
+    each step every rank holds its shard of every leaf to the same shard of
+    the one-device run's (:func:`one_device_run`, which every rank computes
+    itself, so nothing whole travels): the largest difference and its bound
+    (``bound`` of the leaf's largest value, a parameter's beyond its
+    allowance). Every rank saves its differences, the losses, and rank 0
+    also the first step's collectives by mesh axis (:func:`by_axis`)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.mesh_step import local, make_mesh_train_step
+    from repro_torch.train.state import make_abstract_state, state_shardings
+    from repro_torch.tree import leaves_with_paths
+
+    opt = AdamWConfig()
+    runs: dict = {}
+    for name, shape, remat, microbatches, rows in jobs:
+        if (microbatches, rows) not in runs:
+            runs[microbatches, rows] = one_device_run(cfg, 2, microbatches, rows, bound)
+        want = runs[microbatches, rows]
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        sh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg, fsdp=True)
+        specs = dict(leaves_with_paths(sh))
+        state = place_tree(initial_state(cfg, opt), sh)
+        step = make_mesh_train_step(cfg, opt, mesh, sh, remat=remat, microbatches=microbatches)
+        losses, diffs = [], []
+        for i, b in enumerate(batches(cfg, len(want), rows)):
+            if i == 0:
+                with CollectiveCounter() as cc:
+                    state, metrics = step(state, b)
+                counted = by_axis(cc, mesh)
+            else:
+                state, metrics = step(state, b)
+            losses.append(float(metrics["loss"]))
+            allow, mine = want[i]["allowance"], dict(leaves_with_paths(state))
+            for path, whole in leaves_with_paths(want[i]["state"]):
+                part = local(specs[path].place(whole))
+                diff = (local(mine[path]).double() - part.double()).abs()
+                if path.startswith("params/"):
+                    key = path.removeprefix("params/")
+                    diff = diff - local(specs[path].place(allow[key])) * (1 + 1e-6)
+                diffs.append((i + 1, path, float(diff.max()) if diff.numel() else 0.0,
+                              bound * max(float(whole.double().abs().max()), 1e-30)))
+        torch.save({"losses": losses, "want": [w["loss"] for w in want], "diffs": diffs,
+                    "counted": counted if rank == 0 else None},
+                   os.path.join(out_dir, f"{name}-rank{rank}.pt"))
+
+
+def fsdp_serve_worker(rank, world, out_dir, jobs):
+    """For each job ``(name, cfg, (data, model))``: the parameters placed
+    by ``param_shardings`` with FSDP, the mesh prefill of a (BATCH, SEQ)
+    batch and DECODE_STEPS decode steps of fixed tokens against its cache,
+    each call under its own collective counter. Every rank saves its
+    prefill logits and data index; rank 0 the decode logits and the
+    calls' counts by mesh axis (:func:`by_axis`)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import dp_axes, param_shardings, place_tree
+    from repro_torch.models.model import build_params, demo_batch
+    from repro_torch.train.mesh_step import make_mesh_decode_step, make_mesh_prefill_step
+
+    for name, cfg, shape in jobs:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        params = build_params(cfg, seed=0, device="cpu")
+        placed = place_tree(params, param_shardings(params, mesh, cfg, fsdp=True))
+        batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
+        decode = make_mesh_decode_step(cfg, mesh)
+        counts = []
+        with CollectiveCounter() as cc:
+            logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ + DECODE_STEPS)(
+                placed, batch)
+        counts.append(by_axis(cc, mesh))
+        steps = []
+        for i in range(DECODE_STEPS):
+            token = demo_batch(cfg, BATCH, 1, kind="decode", seed=2 + i, device="cpu")
+            with CollectiveCounter() as cc:
+                d_logits, cache = decode(placed, cache, token)
+            counts.append(by_axis(cc, mesh))
+            steps.append(d_logits)
+        coord = mesh.get_coordinate()
+        dp = list(mesh.mesh_dim_names).index(dp_axes(mesh)[0])
+        torch.save({"logits": logits, "dp_index": coord[dp]},
+                   os.path.join(out_dir, f"{name}-prefill-rank{rank}.pt"))
+        if rank == 0:
+            torch.save({"steps": steps, "counts": counts},
+                       os.path.join(out_dir, f"{name}-decode.pt"))
+
+
+def fsdp_grad_worker(rank, world, out_dir, jobs):
+    """For each job ``(name, (data, model), dtype, split)``: a (6, 8)
+    leaf's FSDP shard (its columns over ``data``) gathered whole by
+    ``tp.gather_data``, and the gradient reaching the shard from a loss
+    whose gradient at the gathered leaf is this rank's own weights (drawn
+    alike on every rank, one slice a rank). Rank 0 saves the weights;
+    every rank its gradient, its data index and whether the gather gave
+    the whole leaf."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import tp
+
+    for name, shape, dtype, split in jobs:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn((6, 8), generator=gen).to(dtype)
+        # 8-bit integers times 2^-4..2^4: exact in bf16, their sums exact in
+        # fp32 in any order, and a sum in bf16 rounds
+        w = torch.randint(-128, 128, (world, 6, 8), generator=gen).float() \
+            * 2.0 ** torch.randint(-4, 5, (world, 6, 8), generator=gen)
+        i = mesh.get_local_rank("data")
+        shard = x.chunk(shape[0], 1)[i].clone().requires_grad_()
+        whole = tp.gather_data(shard, 1, mesh.get_group("data"), [] if split else None)
+        (grad,) = torch.autograd.grad((whole.float() * w[rank]).sum(), shard)
+        torch.save({"grad": grad, "data": i, "gathered": torch.equal(whole, x)},
+                   os.path.join(out_dir, f"{name}-rank{rank}.pt"))
+        if rank == 0:
+            torch.save(w, os.path.join(out_dir, f"{name}-w.pt"))
+
+
 # ------------------------------------------------ tensor-parallel compute
 DECODE_STEPS = 4
 
@@ -331,7 +509,7 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
     from repro_torch.models import layers
     from repro_torch.models.model import build_params
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.train.mesh_step import (_dp_groups, _gather_data, _share,
+    from repro_torch.train.mesh_step import (_dp_groups, _share, local,
                                              make_mesh_train_step)
     from repro_torch.train.state import make_abstract_state, state_shardings
     from repro_torch.train.train_step import loss_and_grads
@@ -355,7 +533,7 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
         first = batches(cfg, STEPS_TP)[0]
         share, split = _share(first, mesh)
         with use_mesh(mesh), layers.split_batch(_dp_groups(mesh) if split else []):
-            _, grads = loss_and_grads(tree_map(_gather_data, state["params"]), share, cfg)
+            _, grads = loss_and_grads(tree_map(local, state["params"]), share, cfg)
         spread = {}
         for path, g in leaves_with_paths(grads):
             if path not in sharded:

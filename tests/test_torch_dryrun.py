@@ -22,6 +22,13 @@
   cache within 1e-4 of the largest value (the whole-model bound of
   ``tests/test_torch_model.py``): qwen3-moe (attention caches, MoE routed
   over the whole batch) with FSDP, and mamba2-780m (SSM states).
+* A rank's peak live bytes (``peak_live_bytes``) of a yi-9b smoke config
+  widened until its MLP leaves reach the FSDP threshold (d_model 256, d_ff
+  4,096), traced with FSDP at a fake (4, 1) mesh: at least its argument
+  bytes, and from 2 to 4 blocks the peak grows by the argument bytes'
+  growth, the two more blocks' saved inputs (remat) and less than one
+  block's gathered bytes more, where gathering the whole tree at the
+  step's start would hold two more blocks' gathered bytes.
 * A production cell (mamba2-780m ``decode_32k`` on the 16x16 mesh, 256
   fake ranks in this process) gives a whole record with the card's
   constants, which the port's ``roofline.load_records`` and ``fmt_row``
@@ -39,6 +46,8 @@ from _torch_dist import BATCH, SEQ, run_ranks, serve_worker, smoke_cfg, train_wo
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.config import ShapeConfig
+from repro_torch.models.transformer import abstract_params
+from repro_torch.tree import leaves
 
 CFG = smoke_cfg("qwen3-moe-30b-a3b", 16384)
 
@@ -103,6 +112,24 @@ def test_dryrun_of_work_on_a_ranks_share(arch, changes, mesh, tmp_path):
         assert traced[m]["flops"] * m == traced[1]["flops"]
     else:  # below 1/m of (d, 1)'s: the experts there run every slot
         assert traced[m]["flops"] * m < traced[1]["flops"]
+
+
+def test_dryrun_peak_gathers_a_block_at_a_time():
+    shape = ShapeConfig("smoke", SEQ, BATCH, "train")
+    traced, block = {}, 0
+    for n in (2, 4):
+        cfg = smoke_cfg("yi-9b", 512, d_model=256, d_ff=4096, n_layers=n)
+        traced[n] = dryrun.trace_step(cfg, shape, 4,
+                                      lambda dt: make_host_mesh(4, 1, device_type=dt),
+                                      fsdp=True)
+        assert traced[n]["peak_live_bytes"] >= traced[n]["argument_size_in_bytes"] > 0
+        block = sum(t[0].numel() * t.element_size()
+                    for t in leaves(abstract_params(cfg)["blocks"]))
+    inputs = 2 * (BATCH // 4) * SEQ * cfg.d_model * 4  # two more blocks' fp32 inputs
+    growth = (traced[4]["peak_live_bytes"] - traced[2]["peak_live_bytes"]
+              - (traced[4]["argument_size_in_bytes"] - traced[2]["argument_size_in_bytes"])
+              - inputs)
+    assert 0 < growth < block, (growth, block)
 
 
 def test_roofline_reads_the_dryrun_records(tmp_path):
