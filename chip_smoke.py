@@ -262,6 +262,12 @@ TP_FSDP = {"yi-9b-fsdp"}  # the configs whose state is placed with fsdp=True
 #: heads, vocab 64,000) in fp32, cut in depth to 4 blocks: FSDP on those ranks
 #: too, its peak device memory held to a pass that gathers the whole tree
 TP_FSDP_FULL = ("yi-9b-full", "yi-9b", 4)
+#: and that FSDP config again with 8-bit AdamW moments (its train steps only):
+#: each rank updates the q8 rows it holds (``repro_torch.optim.q8_shard``)
+TP_Q8 = ("yi-9b-fsdp-q8", "yi-9b-fsdp")
+#: and ``TP_FSDP_FULL``'s config with them: at full width a rank works its
+#: larger leaves' rows in many passes of ``q8_shard.CHUNK`` positions
+TP_Q8_FULL = "yi-9b-full-q8"
 TP_BATCH, TP_SEQ = 4, 16  # their prefill batch; the cache holds TP_SEQ + TP_DECODE
 TP_DECODE = 4  # decode steps after each prefill
 TP_TRAIN_STEPS = 2  # train steps from step 50
@@ -4135,8 +4141,11 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
     ``TP_SMOKE`` configs (among them attention on a rank's query heads and
     on its queries) and the ``TP_SMOKE_DP`` ones (MoE capacity slots split
     over ``data``; a yi-9b widened to the FSDP threshold, its state placed
-    with FSDP, :func:`fsdp_check`; and ``TP_FSDP_FULL``, yi-9b at full width
-    cut to 4 blocks with FSDP, :func:`fsdp_full_check`) in fp32 (TF32 off),
+    with FSDP, :func:`fsdp_check`; ``TP_FSDP_FULL``, yi-9b at full width
+    cut to 4 blocks with FSDP, :func:`fsdp_full_check`; and ``TP_Q8`` and
+    ``TP_Q8_FULL``, those two yi-9b with FSDP and 8-bit moments, each rank
+    updating its own q8 rows, their train steps held step by step,
+    :func:`q8_check`) in fp32 (TF32 off),
     the mesh prefill, ``TP_DECODE``
     decode steps and ``TP_TRAIN_STEPS`` train steps held to the card's
     one-device run within ``TP_TOL`` (:func:`tp_reference`), and mamba2-780m
@@ -4323,6 +4332,9 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
                    for r in range(len(which))]
             tp_check(card, mesh, got, want, fp32_card if mesh == TP_MESH else None,
                      ref_s, ranks_s)
+            if mesh == TP_MESH_DP:
+                for name in (TP_Q8[0], TP_Q8_FULL):
+                    q8_check(card, dev, mesh, got, name, out_dir)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -4749,6 +4761,200 @@ def fsdp_full_check(card: str, mesh: tuple, got: list, want: dict) -> None:
     fsdp_check(card, mesh, name, cfg, want["shardings"], [rank[name] for rank in got])
 
 
+def _q8_case(name: str, dev, zeros: bool = False) -> tuple:
+    """A q8 case's config, optimizer and initial state on ``dev`` at step
+    50: ``TP_Q8``'s smoke config from seed 0, or ``TP_Q8_FULL``'s full
+    width with :func:`_tp_full_params` (its moments ``meta`` where
+    ``zeros``: :func:`tp_rank`'s ``place`` makes them the zeros
+    ``init_state`` makes)."""
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.train.state import make_abstract_state, make_state
+
+    opt = AdamWConfig(quantized_moments=True)
+    if name != TP_Q8_FULL:
+        cfg = _tp_cfg(TP_Q8[1])
+        state = make_state(cfg, opt, seed=0, device=dev)
+        state["step"].fill_(50)
+        return cfg, opt, state
+    cfg = _tp_full_cfg()
+    params = _tp_full_params(cfg, dev)
+    moments = make_abstract_state(cfg, opt)["opt"] if zeros else init_state(params, opt)
+    return cfg, opt, {"params": params, "opt": moments,
+                      "step": torch.full((), 50, dtype=torch.int32, device=dev)}
+
+
+def _q8_passes(state: dict) -> int:
+    """The most passes of ``q8_shard.CHUNK`` positions that one leaf's q8
+    update takes on this rank."""
+    from repro_torch.optim import q8_shard
+    from repro_torch.optim.adamw import param_nodes
+
+    most = 0
+    for p, m in param_nodes(state["params"], state["opt"]["m"]):
+        plan = q8_shard._Plan(p, m["q"])
+        a, b = plan.own(plan.i, plan.j)
+        most = max(most, -(-(b - a) // q8_shard.CHUNK))
+    return most
+
+
+def q8_check(card: str, dev: torch.device, mesh: tuple, got: list, name: str,
+             out_dir: str) -> None:
+    """The q8 case ``name`` (``TP_Q8`` or ``TP_Q8_FULL``) on each rank of
+    ``mesh``: step by step against the card's one-device q8 run (fp32,
+    TF32 off), the first step from the initial state and each later one
+    from the ranks' own state after the step before (their shards joined,
+    read from the ranks' files in ``out_dir``), as
+    ``tests/test_torch_mesh_train.py`` holds its q8 run: the losses and
+    every leaf's shard within ``TP_TOL`` of the leaf's largest value, ``q``
+    within one quantum, a parameter beyond lr x the change of the step's
+    Adam step for a gradient change of ``TP_TOL`` of the leaf's largest
+    gradient (as :func:`tp_check` allows the other cases); and the train
+    steps' all-gathers: none over ``data`` of a ``q``/``scale`` leaf's
+    shape, none over ``model`` of a leaf split over it, and over ``data``
+    only the FSDP gathers of the forward pass and remat's recompute (no
+    gradient gathered back). Every check raises."""
+    from repro_torch.models.model import demo_batch
+    from repro_torch.optim import q8_shard
+    from repro_torch.optim.adamw import cosine_schedule, dequantize_q8, param_nodes
+    from repro_torch.train.state import make_abstract_state, state_shardings
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+    from repro_torch.tree import leaves, leaves_with_paths, unflatten
+
+    t0 = time.perf_counter()
+    cfg, opt, state = _q8_case(name, dev)
+    abstract = make_abstract_state(cfg, opt)
+    sh = state_shardings(abstract, {"data": mesh[0], "model": mesh[1]}, cfg, fsdp=True)
+    specs = {p: s.spec for p, s in leaves_with_paths(sh)}
+    q8_rows = {tuple(t.shape) for p, t in leaves_with_paths(abstract["opt"])
+               if p.endswith(("/q", "/scale"))}
+    on_data = [p for p, s in leaves_with_paths(sh["params"]) if "data" in s.spec]
+    fsdp = [p for p in on_data if p.startswith("blocks/")]
+    expect = (2 * len(fsdp) * cfg.n_blocks + len(on_data) - len(fsdp)) * TP_TRAIN_STEPS
+    for r, rank in enumerate(got):
+        g = rank[name]
+        if g["bad"] or q8_rows & set(g["data_gathered"]) or g["data_gathers"] != [expect]:
+            raise AssertionError(
+                f"dist: {name} rank {r} gathered model-split leaves over model "
+                f"{g['bad'][:3]}, q8 rows over data {sorted(q8_rows & set(g['data_gathered']))}"
+                f", or made {g['data_gathers']} all-gathers over data, not [{expect}]")
+
+    def saved(r: int, i: int) -> dict:
+        """Rank ``r``'s state after step ``i + 1``, mapped from its file."""
+        return dict(leaves_with_paths(torch.load(
+            os.path.join(out_dir, f"{name}-rank{r}-step{i}.pt"), mmap=True,
+            weights_only=False)))
+
+    def joined(i: int) -> dict:
+        """The ranks' state after step ``i + 1``, their shards joined, on the card."""
+        mine = [saved(r, i) for r in range(len(got))]
+        out = []
+        for path, t in leaves_with_paths(abstract):
+            whole = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            for r, part in enumerate(mine):
+                _tp_cut(whole, specs[path], _tp_at(r, mesh), mesh).copy_(part[path])
+            out.append(whole)
+        return unflatten(abstract, out)
+
+    def allowance(state: dict, batch: dict) -> dict:
+        """lr x |s(g +- d) - s(g)| for the q8 Adam step s of each parameter
+        entry from ``state`` with its one-device gradient g, d = ``TP_TOL``
+        x the leaf's largest |g| (in fp64, kept in fp32 on the card)."""
+        _, grads = loss_and_grads(state["params"], batch, cfg)
+        norm = sum(float(x.double().square().sum()) for x in leaves(grads)) ** 0.5
+        clip = min(1.0, opt.grad_clip / (norm + 1e-9))
+        count = int(state["opt"]["count"]) + 1
+        bc1, bc2 = 1 - opt.b1 ** count, 1 - opt.b2 ** count
+        lr = opt.lr * float(cosine_schedule(state["step"]))
+        out = {}
+        nodes = param_nodes(state["params"], state["opt"]["m"], state["opt"]["v"], grads)
+        for (path, _), (p, m, v, g) in zip(leaves_with_paths(state["params"]), nodes):
+            M = dequantize_q8(m, p.shape).double()
+            V = dequantize_q8(v, p.shape).double()
+            g = g.double() * clip
+
+            def s(x, M=M, V=V):
+                return ((opt.b1 * M + (1 - opt.b1) * x) / bc1) / (
+                    torch.sqrt((opt.b2 * V + (1 - opt.b2) * x * x) / bc2) + opt.eps)
+
+            d = TP_TOL * float(g.abs().max())
+            out[path] = (lr * torch.maximum((s(g + d) - s(g)).abs(),
+                                            (s(g - d) - s(g)).abs())).float()
+            del M, V, g
+        return out
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = {"params": 0.0, "moments": 0.0, "q": 0}
+    try:
+        step = make_train_step(cfg, opt)
+        for i in range(TP_TRAIN_STEPS):
+            batch = demo_batch(cfg, TP_BATCH, TP_SEQ, kind="train", seed=i, device=dev)
+            if i > 0:
+                del state
+                state = joined(i - 1)
+            allow = allowance(state, batch)
+            state, metrics = step(state, batch)
+            want_loss = float(metrics["loss"])
+            ref = dict(leaves_with_paths(state))
+            top = {path: max(float(t.abs().max()), 1e-30) for path, t in ref.items()}
+            for r, rank in enumerate(got):
+                loss = rank[name]["losses"][i]
+                if abs(loss - want_loss) > TP_TOL * abs(want_loss):
+                    raise AssertionError(f"dist: {name} rank {r} step {i + 1} loss {loss} "
+                                         f"against the one-device run's {want_loss}")
+                mine, at = saved(r, i), _tp_at(r, mesh)
+                for path, whole in ref.items():
+                    part = _tp_cut(whole, specs[path], at, mesh)
+                    a = mine[path]
+                    if a.shape != part.shape or a.dtype != part.dtype:
+                        raise AssertionError(f"dist: {name} rank {r} {path}: "
+                                             f"{tuple(a.shape)} {a.dtype}, not "
+                                             f"{tuple(part.shape)} {part.dtype}")
+                    a = a.to(dev)
+                    if path.endswith("/q"):
+                        err = int((a.int() - part.int()).abs().max())
+                        worst["q"] = max(worst["q"], err)
+                        if err > 1:
+                            raise AssertionError(f"dist: {name} rank {r} step {i + 1} "
+                                                 f"{path}: {err} quanta apart")
+                        continue
+                    diff = (a.double() - part.double()).abs()
+                    key = path.removeprefix("params/")
+                    if path.startswith("params/"):
+                        diff = diff - _tp_cut(allow[key], specs[path], at, mesh).double() \
+                            * (1 + 1e-6)
+                    err = float(diff.max()) / top[path]
+                    kind = "params" if path.startswith("params/") else "moments"
+                    worst[kind] = max(worst[kind], err)
+                    if err > TP_TOL:
+                        raise AssertionError(f"dist: {name} rank {r} step {i + 1} {path}: "
+                                             f"{err:.3e} of its largest value > {TP_TOL}")
+                    del a, diff
+            del allow, ref
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del state
+    torch.cuda.empty_cache()
+    base = TP_Q8[1] if name == TP_Q8[0] else (
+        f"{TP_FSDP_FULL[1]} at full width (d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}) in fp32, {cfg.n_blocks} blocks,")
+    log("dist", f"[{card}] (e) {name} at {mesh}: {base} with 8-bit AdamW moments and "
+        f"FSDP, {TP_TRAIN_STEPS} train steps, each rank updating the q8 rows it holds "
+        f"(a leaf in at most {[g[name]['passes'] for g in got]} passes of "
+        f"{q8_shard.CHUNK} positions a rank): step by step == the card's one-device q8 run "
+        f"(losses {got[0][name]['losses']}; worst "
+        f"relative error of a parameter shard beyond the Adam allowance "
+        f"{worst['params']:.2e}, of a scale or other leaf {worst['moments']:.2e}, q "
+        f"{worst['q']} quanta; bound {TP_TOL}, q one quantum); all-gathers over data a "
+        f"rank {[g[name]['data_gathers'][0] for g in got]} == the forward's FSDP gathers "
+        f"{expect}, none of a q/scale leaf's {len(q8_rows)} shapes, none over model of a "
+        f"leaf split over it; all-to-alls over data a rank "
+        f"{[g[name]['data_all_to_all'] for g in got]}; the case "
+        f"{got[0]['times'][f'{name}_s']} s of a rank, its check "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
             mesh_arg: str = "1,2") -> int:
     """``chip_smoke.py --tp-rank RANK PORT DIR [DEVICE [D,M]]``: one of the
@@ -4756,7 +4962,9 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
     ranks of a (D, M) mesh (``TP_MESH`` or ``TP_MESH_DP``) at
     ``localhost:PORT``: its smoke configs' (``_tp_cases``) mesh prefill,
     decode and train steps (at ``TP_MESH_DP`` ``TP_FSDP_FULL``'s too, its
-    weights drawn on the card), and, where ``DIR/inputs.pt`` holds the lm
+    weights drawn on the card, and the q8 cases' train steps, each step's
+    state written to ``DIR/{case}-rank{RANK}-step{i}.pt``), and, where
+    ``DIR/inputs.pt`` holds the lm
     phase's prompt batch, mamba2-780m at full width in fp32 over it (one
     decode step under ``FlopCounterMode``), under the collective counter;
     writes ``DIR/rank{RANK}.pt``. (``device_type`` ``"cpu"`` runs it on the
@@ -4888,6 +5096,35 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
                                       "state": tree_map(lambda t: local(t).cpu(), state)}
         results["times"]["smoke_s"] = round(time.perf_counter() - t0, 1)
         if shape == TP_MESH_DP:
+            # the q8 cases: the rank's state after each train step (to a
+            # file each: at full width a rank's state is GBs), the passes
+            # its largest leaf took, and the steps' all-gathers
+            for name in (TP_Q8[0], TP_Q8_FULL):
+                t0 = time.perf_counter()
+                cfg, opt, whole = _q8_case(name, dev if name == TP_Q8_FULL else "cpu",
+                                           zeros=True)
+                abstract = make_abstract_state(cfg, opt)
+                sh = state_shardings(abstract, mesh, cfg, fsdp=True)
+                state = place(whole, sh)
+                del whole
+                passes = _q8_passes(state)
+                step = make_mesh_train_step(cfg, opt, mesh, sh)
+                losses = []
+                with CollectiveCounter() as tc:
+                    for i in range(TP_TRAIN_STEPS):
+                        state, metrics = step(state, demo_batch(
+                            cfg, TP_BATCH, TP_SEQ, kind="train", seed=i, device=dev))
+                        losses.append(float(metrics["loss"]))
+                        torch.save(tree_map(lambda t: local(t).cpu(), state),
+                                   os.path.join(out_dir, f"{name}-rank{rank}-step{i}.pt"))
+                results[name] = {"losses": losses, "passes": passes,
+                                 "data_gathered": [s for g, s in tc.gathered
+                                                   if g == data_group],
+                                 **report([tc], forbidden(abstract["params"], sh["params"]))}
+                del state
+                if device_type == "cuda":
+                    torch.cuda.empty_cache()
+                results["times"][f"{name}_s"] = round(time.perf_counter() - t0, 1)
             # yi-9b at full width with FSDP, its weights drawn on the card
             t0 = time.perf_counter()
             cfg, opt = _tp_full_cfg(), AdamWConfig()

@@ -145,6 +145,11 @@ def _contiguous_stride(shape) -> tuple[int, ...]:
     return tuple(reversed(stride))
 
 
+def local(dt) -> torch.Tensor:
+    """The rank's shard of a DTensor, writable in place."""
+    return dt._local_tensor
+
+
 def place_tree(tree, shardings, meta: bool = False):
     """Every leaf of ``tree`` placed by its :class:`NamedSharding`."""
     if meta:

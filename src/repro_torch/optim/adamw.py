@@ -7,6 +7,11 @@ layout). The 8-bit variant stores both Adam moments as int8 with per-block
 instead of 8. The bias corrections, the clip by the global norm and the
 update run in fp32 as in the reference; :func:`apply_updates` writes the
 parameters and moments in place (the same values the reference returns).
+On a mesh, each rank updates a q8 leaf on the rows it holds
+(:func:`repro_torch.optim.q8_shard.update_leaf`, the same elementwise
+operations as :func:`moment_step` and :func:`apply_step`, from the same
+:func:`advance`, :func:`adam_step`, :func:`q8_scale` and :func:`requantize`);
+the other functions here update whole leaves.
 """
 
 from __future__ import annotations
@@ -44,10 +49,18 @@ def quantize_q8(x: torch.Tensor) -> dict:
     even and clipped to ±127."""
     flat = x.reshape(-1)
     blocks = F.pad(flat, (0, _pad_len(flat.numel()) - flat.numel())).reshape(-1, BLOCK)
-    scale = blocks.abs().amax(dim=1, keepdim=True) / 127.0
-    scale = torch.clamp(scale, min=1e-12)
-    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
-    return {"q": q, "scale": scale.to(torch.float32)}
+    scale = q8_scale(blocks.abs().amax(dim=1, keepdim=True))
+    return {"q": requantize(blocks, scale), "scale": scale.to(torch.float32)}
+
+
+def q8_scale(peak: torch.Tensor) -> torch.Tensor:
+    """A block's scale from its largest magnitude ``peak``."""
+    return torch.clamp(peak / 127.0, min=1e-12)
+
+
+def requantize(y: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``y`` in int8 steps of ``scale``, rounded half to even, clipped to ±127."""
+    return torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
 
 
 def dequantize_q8(qs: dict, shape) -> torch.Tensor:
@@ -101,6 +114,16 @@ def step_scalars(count, gnorm, cfg: AdamWConfig, lr_scale=1.0):
     return clip, bc1, bc2, cfg.lr * lr_scale
 
 
+def advance(old: torch.Tensor, x: torch.Tensor, beta: float) -> torch.Tensor:
+    """A moment ``old`` advanced by ``x`` (the gradient, or its square)."""
+    return beta * old + (1 - beta) * x
+
+
+def adam_step(mf, vf, bc1, bc2, eps: float) -> torch.Tensor:
+    """The Adam step m^/(sqrt(v^) + eps) of the advanced moments."""
+    return (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+
+
 @torch.no_grad()
 def moment_step(g, m, v, shape, clip, bc1, bc2, cfg: AdamWConfig) -> torch.Tensor:
     """The moments of a leaf of ``shape`` advanced by its gradient ``g``
@@ -113,9 +136,9 @@ def moment_step(g, m, v, shape, clip, bc1, bc2, cfg: AdamWConfig) -> torch.Tenso
         vf = dequantize_q8(v, shape)
     else:
         mf, vf = m, v
-    mf = b1 * mf + (1 - b1) * g
-    vf = b2 * vf + (1 - b2) * torch.square(g)
-    step = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+    mf = advance(mf, g, b1)
+    vf = advance(vf, torch.square(g), b2)
+    step = adam_step(mf, vf, bc1, bc2, cfg.eps)
     if cfg.quantized_moments:
         for dst, src in ((m, quantize_q8(mf)), (v, quantize_q8(vf))):
             dst["q"].copy_(src["q"])

@@ -40,12 +40,12 @@ The train step (:func:`make_mesh_train_step`) on every rank:
    its parameter's placement updates that slice of the parameter, and the
    slices are all-gathered back over the data axes. q8 moments are blocked
    256 elements at a time along the whole flattened leaf and sharded by
-   row over ``data`` only: their rows are gathered (int8 and scales) and a
-   ``model``-sharded gradient is gathered over ``model`` (the gradient, not
-   the parameter), the moments and the Adam step are computed for the
-   whole leaf, and each rank applies the step's slice to its parameter
-   shard and keeps its rows (an FSDP leaf's gradient gathered back over
-   ``data`` for it).
+   row over ``data`` only: each rank updates the positions of its own rows
+   that lie in its ``model`` shard (or its slice of them), from the
+   ``model`` shard's gradient or, for an FSDP leaf, from the FSDP shards
+   exchanged by an all-to-all over ``data``, and the step goes back the
+   same way (:func:`~repro_torch.optim.q8_shard.update_leaf`); no q8 row
+   and no whole gradient is gathered.
 
 The prefill and decode steps gather each block's FSDP shards where the
 block runs and drop them after it, and the other leaves' once a call.
@@ -72,12 +72,13 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import (batch_specs, cache_specs_tree,
-                                              dp_axes, dp_size, mesh_shape,
+                                              dp_axes, dp_size, local, mesh_shape,
                                               use_mesh)
 from repro_torch.models import layers
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.model import loss_fn, serve_decode, serve_prefill
 from repro_torch.models.transformer import STACKS, abstract_cache, unstack_blocks
+from repro_torch.optim import q8_shard
 from repro_torch.optim.adamw import (AdamWConfig, apply_step, cosine_schedule,
                                      moment_step, param_nodes, step_scalars)
 from repro_torch.tree import leaves, leaves_with_paths, tree_map
@@ -88,11 +89,6 @@ def full_tensor(dt) -> torch.Tensor:
     dims it is sharded on; nothing for a replicated one)."""
     mesh = dt.device_mesh
     return dt.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
-
-
-def local(dt) -> torch.Tensor:
-    """The rank's shard of a DTensor, writable in place."""
-    return dt._local_tensor
 
 
 def _same(mesh, have, want) -> list:
@@ -182,12 +178,6 @@ def _replicas(mesh, placements) -> int:
     return math.prod(s for s, p in zip(sizes, placements) if p.is_replicate())
 
 
-def _model_dim(placements, names) -> int | None:
-    """The tensor dim a leaf is sharded on over ``model``, or None."""
-    p = placements[names.index("model")]
-    return p.dim if p.is_shard() else None
-
-
 def _stacked(path: str) -> bool:
     return path.split("/")[0] in STACKS
 
@@ -225,7 +215,6 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
                 for (p, _), fd in zip(leaves_with_paths(shardings["params"]), fsdp)]
     names = list(mesh_shape(mesh))
     dp = dp_axes(mesh)
-    group = tp.group_of(mesh)
 
     def grads_of(params, batch):
         """The loss and gradients of the rank's share of ``batch`` for the
@@ -294,10 +283,8 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
             to = on_model if opt.quantized_moments else list(ms.placements())
             if fd is not None:
                 # averaged into the rank's shard by the gather's backward; its
-                # moments have the parameter's placement (the q8 path takes
-                # the leaf's model shard whole)
-                if opt.quantized_moments:
-                    g = tp.gather(g, fd, mesh.get_group("data"))
+                # moments have the parameter's placement (or are q8 rows)
+                to = list(ps.placements())
                 reduced.append(g)
             elif split and all(p.is_replicate() for a, p in zip(names, to) if a in dp):
                 # Partial -> Replicate over the data axes: the c10d all-reduce,
@@ -325,18 +312,8 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
                                                         gi.shape, clip, bc1, bc2, opt),
                                lr, opt)
                 continue
-            if opt.quantized_moments:
-                # the leaf whole: its gradient gathered over model, its q8
-                # rows over data; the step's slice applied to the shard
-                d = _model_dim(ps.placements(), names)
-                g = tp.gather(g, d, group) if d is not None else g
-                mf = {k: _to(t, [Replicate()] * mesh.ndim).clone() for k, t in m.items()}
-                vf = {k: _to(t, [Replicate()] * mesh.ndim).clone() for k, t in v.items()}
-                step = moment_step(g, mf, vf, g.shape, clip, bc1, bc2, opt)
-                apply_step(local(p), local(ps.place(step)), lr, opt)
-                for node, whole in ((m, mf), (v, vf)):
-                    for k in node:  # m and v share their rules
-                        local(node[k]).copy_(local(ms[k].place(whole[k])))
+            if opt.quantized_moments:  # on the rank's own rows
+                q8_shard.update_leaf(p, g, m, v, clip, bc1, bc2, lr, opt)
                 continue
             fine = _same(mesh, ps.placements(), ms.placements())
             if list(fine) == list(ps.placements()):

@@ -596,3 +596,118 @@ def tp_prefill_worker(rank, world, out_dir, cases):
         torch.save({"logits": logits,
                     "dp_index": coord[list(mesh.mesh_dim_names).index(dp_axes(mesh)[0])]},
                    os.path.join(out_dir, f"{name}-ref-prefill-rank{rank}.pt"))
+
+
+# ------------------------------------------------- the q8 update on a rank's rows
+def q8_leaf_case(name: str, shape: tuple, seed: int) -> dict:
+    """A q8 leaf's whole tensors, made from ``seed`` with numpy: the
+    parameter, two steps' gradients and q8 moments that start from nonzero
+    values (so the first step dequantizes them)."""
+    import numpy as np
+
+    from repro_torch.optim.adamw import quantize_q8
+
+    rng = np.random.default_rng(seed)
+
+    def draw(scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale)
+
+    return {"name": name, "param": draw(), "grads": [draw(), draw(3.0)],
+            "m": quantize_q8(draw(0.01)), "v": quantize_q8(draw(0.01).square())}
+
+
+#: the step scalars of the two updates: (clip, count, lr)
+Q8_STEPS = [(0.75, 1, 3e-4), (1.0, 2, 2.5e-4)]
+
+
+def q8_update_worker(rank, world, out_dir, cases):
+    """For each case ``(mesh, chunk, leaves)``, ``mesh`` a ``(data, model)``
+    or ``(pod, data, model)`` shape and ``chunk`` the positions
+    ``q8_shard`` works on at once (None: its default), each leaf ``(name,
+    shape, spec, seed)``: the leaf (:func:`q8_leaf_case`) placed by ``spec``
+    and its q8 moments by ``state_shardings``' rule (rows over ``data``
+    where they divide), updated twice by ``q8_shard.update_leaf`` from the
+    rank's gradient (its FSDP shard where ``spec`` shards over ``data``,
+    else its ``model`` shard), each update under the collective counter;
+    the whole-leaf ``moment_step`` and ``apply_step`` run beside it on
+    every rank. Every rank saves, per leaf and update, whether its parameter
+    shard, ``q`` and ``scale`` rows and their dequantized fp32 moments equal
+    the same shards of the whole-leaf update's bit for bit, the update's
+    collectives by mesh axis (:func:`by_axis`), and how many positions it
+    owns (``|W|``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.optim import q8_shard
+    from repro_torch.optim.adamw import AdamWConfig, apply_step, dequantize_q8, moment_step
+
+    opt = AdamWConfig(quantized_moments=True)
+    default = q8_shard.CHUNK
+    results = {}
+    for shape, chunk, leaves in cases:
+        names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        d = shape[-2]
+        q8_shard.CHUNK = chunk or default
+        for name, leaf_shape, spec, seed in leaves:
+            case = q8_leaf_case(name, leaf_shape, seed)
+            sh = NamedSharding(mesh, spec)
+            rows = case["m"]["q"].shape[0]
+            qs = NamedSharding(mesh, ("data" if rows % d == 0 else None, None))
+            on_model = NamedSharding(mesh, tuple(None if e == "data" else e for e in spec))
+            fsdp = d > 1 and "data" in spec
+            p = sh.place(case["param"].clone())
+            m = {k: qs.place(t.clone()) for k, t in case["m"].items()}
+            v = {k: qs.place(t.clone()) for k, t in case["v"].items()}
+            plan = q8_shard._Plan(p, m["q"])
+            la, lb = plan.own(plan.i, plan.j)
+            whole = {"p": case["param"].clone(),
+                     "m": {k: t.clone() for k, t in case["m"].items()},
+                     "v": {k: t.clone() for k, t in case["v"].items()}}
+            out = []
+            for (clip, count, lr), grad in zip(Q8_STEPS, case["grads"]):
+                clip, lr = torch.tensor(clip), torch.tensor(lr)
+                bc1 = torch.tensor(1.0 - opt.b1 ** count)
+                bc2 = torch.tensor(1.0 - opt.b2 ** count)
+                g = (sh if fsdp else on_model).place(grad)._local_tensor
+                with CollectiveCounter() as cc:
+                    q8_shard.update_leaf(p, g, m, v, clip, bc1, bc2, lr, opt)
+                apply_step(whole["p"], moment_step(grad, whole["m"], whole["v"], leaf_shape,
+                                                   clip, bc1, bc2, opt), lr, opt)
+                same = {"param": torch.equal(p._local_tensor,
+                                             sh.place(whole["p"])._local_tensor)}
+                for k, node in (("m", m), ("v", v)):
+                    mine = {x: node[x]._local_tensor for x in node}
+                    want = {x: qs.place(whole[k][x])._local_tensor for x in node}
+                    for x in node:
+                        same[f"{k}/{x}"] = torch.equal(mine[x], want[x])
+                    same[f"{k}/fp32"] = torch.equal(
+                        dequantize_q8(mine, (mine["q"].numel(),)),
+                        dequantize_q8(want, (want["q"].numel(),)))
+                out.append({"same": same, "owned": lb - la, **by_axis(cc, mesh)})
+            results[shape, chunk, name] = out
+    q8_shard.CHUNK = default
+    torch.save(results, os.path.join(out_dir, f"q8-rank{rank}.pt"))
+
+
+def q8_train_worker(rank, world, out_dir, cfg):
+    """The smoke config's state with q8 moments placed with FSDP on a (2, 2)
+    mesh and trained one step under the collective counter; every rank
+    saves its all-gathers by mesh axis (:func:`by_axis`)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.mesh_step import make_mesh_train_step
+    from repro_torch.train.state import make_abstract_state, state_shardings
+
+    opt = AdamWConfig(quantized_moments=True)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    sh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg, fsdp=True)
+    state = place_tree(initial_state(cfg, opt), sh)
+    step = make_mesh_train_step(cfg, opt, mesh, sh)
+    with CollectiveCounter() as cc:
+        step(state, batches(cfg, 1)[0])
+    torch.save(by_axis(cc, mesh), os.path.join(out_dir, f"q8-train-rank{rank}.pt"))

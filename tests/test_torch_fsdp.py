@@ -36,10 +36,13 @@ leaves are FSDP-sharded, the MLPs' are not).
   block leaves equal to FSDP block leaves x blocks (for yi-9b, all of
   them, and one more a decode step: its logits).
 
-* q8 moments with FSDP at (2, 2) (yi-9b), where an FSDP leaf's gradient,
-  reduced into the rank's shard, is gathered back over ``data`` for the
-  whole-leaf q8 update: held as ``tests/test_torch_mesh_train.py`` holds
-  its q8 run, step by step from the mesh run's own state.
+* q8 moments with FSDP at (2, 2) (yi-9b), where each rank updates the
+  positions of its own q8 rows (``repro_torch.optim.q8_shard``), an FSDP
+  leaf's gradient reaching them from the ranks' FSDP shards by an
+  all-to-all over ``data`` and the step going back the same way: held as
+  ``tests/test_torch_mesh_train.py`` holds its q8 run, step by step from
+  the mesh run's own state (the update alone, against the whole-leaf
+  update bit for bit, is ``tests/test_torch_q8_shard.py``).
 
 * The gather's backward alone, on a bf16 leaf at (2, 2) and (4, 1): the
   shard's gradient is exactly the data ranks' gradients summed and

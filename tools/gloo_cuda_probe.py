@@ -39,6 +39,12 @@ def _rank(rank: int, port: int) -> None:
         "all_to_all (list)": lambda: dist.all_to_all(list(empty(8).chunk(2)),
                                                      list(x.chunk(2))),
         "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        # the q8 update on a rank's rows (repro_torch.optim.q8_shard)
+        "all_reduce MAX": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_reduce int8": lambda: dist.all_reduce(x.to(torch.int8)),
+        "all_to_all_single, uneven splits": lambda: dist.all_to_all_single(
+            empty(5 - 2 * rank), x[: 3 + 2 * rank], output_split_sizes=[2 - rank, 3 - rank],
+            input_split_sizes=[2 + rank, 1 + rank]),
     }
 
     def dtensor():
