@@ -268,6 +268,21 @@ TP_Q8 = ("yi-9b-fsdp-q8", "yi-9b-fsdp")
 #: and ``TP_FSDP_FULL``'s config with them: at full width a rank works its
 #: larger leaves' rows in many passes of ``q8_shard.CHUNK`` positions
 TP_Q8_FULL = "yi-9b-full-q8"
+#: and, on those ranks, a batch of one (smaller than the data axes: the KV
+#: caches' sequence splits over data where it divides, ``long_500k``'s layout;
+#: each rank attends on its slice, the softmax combined over data): five
+#: smoke configs, a full cache (jamba, with SSM and MoE layers), an 8-slot SWA
+#: ring (h2o-danube), cross caches (whisper's encoder, llama-3.2-vision's 8
+#: vision tokens) and local and global layers (gemma2), a TP_SEQ_PROMPT-token
+#: prompt into TP_SEQ_MAX slots and TP_SEQ_STEPS decode steps, across the
+#: ring's wrap and the clamp at the last slot
+TP_SEQ_SPLIT = ("jamba-1.5-large-398b", "h2o-danube-1.8b", "whisper-medium", "gemma2-2b",
+                "llama-3.2-vision-90b")
+TP_SEQ_PROMPT, TP_SEQ_MAX, TP_SEQ_STEPS = 16, 20, 6
+#: and h2o-danube-1.8b at full width in fp32 cut to 4 layers, its weights drawn
+#: on the card: a 48-token prompt into 64 slots (32 a data rank), 8 decode steps
+TP_SEQ_FULL = ("h2o-danube-full", "h2o-danube-1.8b", 4)
+TP_SEQ_FULL_PROMPT, TP_SEQ_FULL_MAX, TP_SEQ_FULL_STEPS = 48, 64, 8
 TP_BATCH, TP_SEQ = 4, 16  # their prefill batch; the cache holds TP_SEQ + TP_DECODE
 TP_DECODE = 4  # decode steps after each prefill
 TP_TRAIN_STEPS = 2  # train steps from step 50
@@ -4145,7 +4160,9 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
     cut to 4 blocks with FSDP, :func:`fsdp_full_check`; and ``TP_Q8`` and
     ``TP_Q8_FULL``, those two yi-9b with FSDP and 8-bit moments, each rank
     updating its own q8 rows, their train steps held step by step,
-    :func:`q8_check`) in fp32 (TF32 off),
+    :func:`q8_check`; and, at a batch of one, ``TP_SEQ_SPLIT`` and
+    ``TP_SEQ_FULL``, whose KV caches' sequence splits over ``data``, each
+    rank attending on its slice, :func:`seq_split_check`) in fp32 (TF32 off),
     the mesh prefill, ``TP_DECODE``
     decode steps and ``TP_TRAIN_STEPS`` train steps held to the card's
     one-device run within ``TP_TOL`` (:func:`tp_reference`), and mamba2-780m
@@ -4335,6 +4352,7 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
             if mesh == TP_MESH_DP:
                 for name in (TP_Q8[0], TP_Q8_FULL):
                     q8_check(card, dev, mesh, got, name, out_dir)
+                seq_split_check(card, mesh, got, want)
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -4454,7 +4472,8 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     host), each parameter's allowance (lr x the change of each step for a
     gradient change of ``TP_TOL`` of the leaf's largest gradient: Adam
     divides every entry by its own magnitude, as the CPU tests allow) and
-    the state's shardings on its ranks' mesh; for ``TP_FSDP_FULL`` (on the
+    the state's shardings on its ranks' mesh; under ``"seq"`` the batch-1
+    cases' (:func:`seq_reference`); for ``TP_FSDP_FULL`` (on the
     card's generator, :func:`_tp_full_params`) the logits, the losses and
     the shardings; and, on ``meta`` tensors,
     mamba2-780m's full-width fp32 parameter bytes and the matmul flops of
@@ -4528,6 +4547,7 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
                          "shardings": state_shardings(make_abstract_state(cfg, opt),
                                                       {"data": mesh[0], "model": mesh[1]},
                                                       cfg, fsdp=name in TP_FSDP)}
+        out["seq"] = seq_reference(dev)
         # the full-width FSDP case: logits and losses only (its state is
         # held leaf by leaf at smoke width)
         cfg = _tp_full_cfg()
@@ -4569,6 +4589,159 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     out["full"] = {"param_bytes": sum(t.numel() * t.element_size() for t in leaves(aparams)),
                    "decode_flops": int(fc.get_total_flops())}
     return out
+
+
+def _seq_cfg(name: str):
+    """A ``TP_SEQ_SPLIT`` smoke config in fp32, or ``TP_SEQ_FULL``'s
+    architecture at full width in fp32 cut in depth to its layers."""
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+
+    if name == TP_SEQ_FULL[0]:
+        cfg = REGISTRY[TP_SEQ_FULL[1]]
+        return replace(cfg, n_layers=TP_SEQ_FULL[2], dtype="float32")
+    return replace(REGISTRY[name].smoke(), dtype="float32")
+
+
+def _seq_cases(dev) -> list:
+    """The batch-1 cases: ``(name, cfg, parameters on dev, prompt, slots,
+    steps)``, the smoke configs' from seed 0 on the host's generator, the
+    full-width one's on the card's (:func:`_tp_full_params`)."""
+    from repro_torch.models.model import build_params
+
+    out = [(n, _seq_cfg(n), lambda n=n: build_params(_seq_cfg(n), seed=0, device=dev),
+            TP_SEQ_PROMPT, TP_SEQ_MAX, TP_SEQ_STEPS) for n in TP_SEQ_SPLIT]
+    full = _seq_cfg(TP_SEQ_FULL[0])
+    return out + [(TP_SEQ_FULL[0], full, lambda: _tp_full_params(full, dev),
+                   TP_SEQ_FULL_PROMPT, TP_SEQ_FULL_MAX, TP_SEQ_FULL_STEPS)]
+
+
+def seq_reference(dev) -> dict:
+    """The batch-1 cases on one device: the prefill's logits and each
+    decode step's, by case."""
+    from repro_torch.models.model import demo_batch, serve_decode, serve_prefill
+
+    out = {}
+    with torch.no_grad():
+        for name, cfg, params, prompt, slots, steps in _seq_cases(dev):
+            params = params()
+            logits, cache = serve_prefill(params, demo_batch(cfg, 1, prompt, kind="prefill",
+                                                             seed=1, device=dev),
+                                          cfg, max_seq=slots)
+            got = [logits.cpu()]
+            for i in range(steps):
+                lg, cache = serve_decode(params, cache, demo_batch(cfg, 1, 1, kind="decode",
+                                                                   seed=2 + i, device=dev), cfg)
+                got.append(lg.cpu())
+            out[name] = got
+            del params, cache
+    return out
+
+
+def seq_split_rank(mesh, dev, place, data_group: str) -> dict:
+    """On a rank of ``mesh``: each batch-1 case's parameters placed by
+    ``param_shardings`` (``place`` cuts the rank's shards), its mesh
+    prefill and decode steps, the latter under the collective counter.
+    Returns, by case, the logits (the prefill's, then each step's), the
+    decode steps' all-gathers and all-reduces over ``data``
+    (``data_group``'s name), and each cache leaf's global and local shape
+    and whether its sequence is split, after the steps."""
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import param_shardings
+    from repro_torch.models.model import demo_batch
+    from repro_torch.train.mesh_step import (_seq_split, local, make_mesh_decode_step,
+                                             make_mesh_prefill_step)
+    from repro_torch.tree import leaves_with_paths
+
+    out = {}
+    for name, cfg, params, prompt, slots, steps in _seq_cases(dev):
+        t0 = time.perf_counter()
+        params = params()
+        placed = place(params, param_shardings(params, mesh, cfg))
+        del params
+        logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=slots)(
+            placed, demo_batch(cfg, 1, prompt, kind="prefill", seed=1, device=dev))
+        got = [logits.cpu()]
+        decode = make_mesh_decode_step(cfg, mesh)
+        with CollectiveCounter() as cc:
+            for i in range(steps):
+                lg, cache = decode(placed, cache, demo_batch(cfg, 1, 1, kind="decode",
+                                                             seed=2 + i, device=dev))
+                got.append(lg.cpu())
+        split = _seq_split(mesh, cache)
+        out[name] = {"logits": got,
+                     "data_gathers": cc.by_group[data_group, "all-gather"],
+                     "data_reduces": cc.by_group[data_group, "all-reduce"],
+                     "leaves": {p: (tuple(t.shape), tuple(local(t).shape),
+                                    p.split("/")[-1] in split.get(p.split("/")[1], ()))
+                                for p, t in leaves_with_paths(cache["blocks"], "blocks")},
+                     "s": round(time.perf_counter() - t0, 1)}
+        del placed, cache
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def seq_split_check(card: str, mesh: tuple, got: list, want: dict) -> None:
+    """The batch-1 cases on each rank of ``mesh`` (:func:`seq_split_rank`)
+    against the one-device card run (``want["seq"]``, :func:`seq_reference`): the smoke
+    configs' logits within ``TP_TOL`` of the largest, the full-width
+    case's within ``LM_GATE`` with equal greedy ids; no all-gather over
+    ``data`` in the decode steps, and three all-reduces over it for each
+    split attention sublayer a step; each split leaf S/d slots a rank
+    after them, the others whole. Every check raises."""
+    d = mesh[0]
+    worst, lines = {}, []
+    for name in (*TP_SEQ_SPLIT, TP_SEQ_FULL[0]):
+        tol = LM_GATE if name == TP_SEQ_FULL[0] else TP_TOL
+        errs = []
+        for r, rank in enumerate(got):
+            g = rank["seq"][name]
+            for i, (a, b) in enumerate(zip(g["logits"], want["seq"][name], strict=True)):
+                errs.append(float((a.double() - b.double()).abs().max()
+                                  / b.double().abs().max()))
+                if a.shape != b.shape or errs[-1] > tol or \
+                        (tol == LM_GATE and not torch.equal(a.argmax(-1), b.argmax(-1))):
+                    raise AssertionError(f"dist: {name} batch 1 rank {r} "
+                                         f"{'prefill' if i == 0 else f'decode {i}'} logits "
+                                         f"differ from the one-device run by {errs[-1]:.3e} "
+                                         f"(bound {tol}), or their ids")
+            # three all-reduces a split attention sublayer (self "k", cross "xk")
+            sub = sum(s for p, (_, _, s) in g["leaves"].items()
+                      if p.rsplit("/", 1)[-1] in ("k", "xk"))
+            steps = TP_SEQ_FULL_STEPS if name == TP_SEQ_FULL[0] else TP_SEQ_STEPS
+            if g["data_gathers"] or \
+                    g["data_reduces"] != 3 * sub * _seq_cfg(name).n_blocks * steps:
+                raise AssertionError(f"dist: {name} batch 1 rank {r}: {g['data_gathers']} "
+                                     f"all-gathers and {g['data_reduces']} all-reduces over "
+                                     f"data in the decode steps, not 0 and 3 x {sub} split "
+                                     f"sublayers a block x {steps} steps")
+            for path, (whole, mine, split) in g["leaves"].items():
+                kv = path.rsplit("/", 1)[-1] in ("k", "v", "xk", "xv")
+                if (split and (whole[2] % d or mine[2] != whole[2] // d)) or \
+                        (kv and not split and mine[2] != whole[2]):
+                    raise AssertionError(f"dist: {name} rank {r} cache {path} {mine} of "
+                                         f"{whole} after the steps (split {split})")
+        g = got[0]["seq"][name]
+        split = sorted(f"{p} ({w[2]} -> {m[2]})" for p, (w, m, s) in g["leaves"].items()
+                       if s and p.rsplit("/", 1)[-1] in ("k", "xk"))
+        worst[name] = max(errs)
+        lines.append(f"{name}: worst {max(errs):.2e}, split {', '.join(split) or 'none'}, "
+                     f"all-reduces over data a rank {g['data_reduces']}, "
+                     f"{', '.join(str(x['seq'][name]['s']) for x in got)} s")
+    cfg = _seq_cfg(TP_SEQ_FULL[0])
+    log("dist", f"[{card}] (e) batch 1 on the {mesh} ranks: the KV caches' sequence split "
+        f"over data where it divides, attended on a rank's slice with the softmax combined "
+        f"over data (no all-gather over data in the decode steps, 3 all-reduces over it "
+        f"a split attention sublayer a step; each split leaf S/d slots a rank after "
+        f"them); smoke configs: a {TP_SEQ_PROMPT}-token prompt into "
+        f"{TP_SEQ_MAX} slots, {TP_SEQ_STEPS} decode steps, within {TP_TOL} of the card's "
+        f"one-device run; {TP_SEQ_FULL[0]}: {cfg.name} at full width (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads, vocab "
+        f"{cfg.vocab_size}) in fp32, {cfg.n_layers} layers, a {TP_SEQ_FULL_PROMPT}-token "
+        f"prompt into {TP_SEQ_FULL_MAX} slots, {TP_SEQ_FULL_STEPS} decode steps, within "
+        f"{LM_GATE} with equal greedy ids; " + "; ".join(lines))
 
 
 def tp_check(card: str, mesh: tuple, got: list, want: dict, fp32_card: dict | None,
@@ -4962,8 +5135,9 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
     ranks of a (D, M) mesh (``TP_MESH`` or ``TP_MESH_DP``) at
     ``localhost:PORT``: its smoke configs' (``_tp_cases``) mesh prefill,
     decode and train steps (at ``TP_MESH_DP`` ``TP_FSDP_FULL``'s too, its
-    weights drawn on the card, and the q8 cases' train steps, each step's
-    state written to ``DIR/{case}-rank{RANK}-step{i}.pt``), and, where
+    weights drawn on the card, the q8 cases' train steps, each step's
+    state written to ``DIR/{case}-rank{RANK}-step{i}.pt``, and the batch-1
+    cases, :func:`seq_split_rank`), and, where
     ``DIR/inputs.pt`` holds the lm
     phase's prompt batch, mamba2-780m at full width in fp32 over it (one
     decode step under ``FlopCounterMode``), under the collective counter;
@@ -5140,6 +5314,10 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
                 cfg, opt, state, sh, forbidden(abstract["params"], sh["params"]), True)
             del state
             results["times"]["fsdp_full_s"] = round(time.perf_counter() - t0, 1)
+            # batch 1: the caches' sequence split over data
+            t0 = time.perf_counter()
+            results["seq"] = seq_split_rank(mesh, dev, place, data_group)
+            results["times"]["seq_s"] = round(time.perf_counter() - t0, 1)
         if os.path.exists(inputs):
             t0 = time.perf_counter()
             inp = torch.load(inputs, weights_only=False)

@@ -54,7 +54,8 @@ def size(group) -> int:
 
 
 def rank(group) -> int:
-    """The rank's index on the ``model`` axis (the shard it holds)."""
+    """The rank's index in ``group`` (the shard it holds): on ``model``
+    for a weight's split, on ``data`` for a cache's sequence split."""
     return 0 if group is None else dist.get_rank(group)
 
 

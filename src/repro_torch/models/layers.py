@@ -8,7 +8,10 @@ names, keys and shapes. The sharding hooks read the mesh that
 (``batch_axes``, the axis sizes); ``constrain`` stays the identity, because
 the port's layers run on the rank's local tensors (see its docstring). A
 step that splits the batch over the data axes says so with
-:func:`split_batch`, and ``moe`` then routes over every rank's tokens.
+:func:`split_batch`, and ``moe`` then routes over every rank's tokens; a
+decode step whose KV caches are split along their sequence over ``data``
+says so with :func:`split_sequence`, and attention then runs on the rank's
+slots and combines its softmax over ``data`` (:func:`attend_cache`).
 
 Tensor parallelism over ``model``: under a mesh whose ``model`` axis has
 more than one rank, a weight the reference's rules shard over ``model``
@@ -53,6 +56,10 @@ _MESH_CTX: list = [None]  # set by repro_torch.distributed.sharding.use_mesh
 #: the process groups over which the running step split its batch, outer
 #: axis first (``pod`` then ``data``), or None; set by :func:`split_batch`
 _SPLIT_CTX: list = [None]
+#: ``(group, split)`` of the running decode step, or None: the ``data``
+#: group over which cache leaves are split along their sequence, and
+#: which leaves are; set by :func:`split_sequence`
+_SEQ_CTX: list = [None]
 
 
 def set_mesh_context(mesh) -> None:
@@ -110,6 +117,29 @@ def split_batch(groups):
         yield
     finally:
         _SPLIT_CTX[0] = None
+
+
+@contextlib.contextmanager
+def split_sequence(group, split: dict):
+    """Mark the code inside as running on a rank's slice of the decode
+    cache leaves that are split along their sequence over ``group`` (the
+    ``data`` process group): ``split`` maps a sublayer's key in a block's
+    cache (``"l3"``) to the names of its split leaves (``{"k", "v"}``,
+    ``{"xk", "xv"}``). Rank r of ``group`` holds slots [r S_l, (r + 1) S_l)
+    of a leaf whose global length is S = S_l d; the other leaves are whole
+    on every rank (``cache_specs_tree`` decides leaf by leaf)."""
+    _SEQ_CTX[0] = (group, split) if split else None
+    try:
+        yield
+    finally:
+        _SEQ_CTX[0] = None
+
+
+def sequence_group(key: str, leaf: str):
+    """The group over which the cache leaf ``leaf`` of sublayer ``key`` is
+    split along its sequence under :func:`split_sequence`, or None."""
+    ctx = _SEQ_CTX[0]
+    return ctx[0] if ctx is not None and leaf in ctx[1].get(key, ()) else None
 
 
 def _gather_shares(x: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -380,12 +410,18 @@ def cache_kv(params, src, cfg, positions=None, bias: bool | None = None):
     return k, v
 
 
-def attend_cache(q, cache_k, cache_v, cfg, *, valid=None, cap=None, g=None):
+def attend_cache(q, cache_k, cache_v, cfg, *, valid=None, cap=None, g=None, seq=None):
     """One query token of every head, q (B, H, hd), against a cache
     (B, S, K, hd_l); ``valid`` (S,) masks slots. Where the cache holds the
     rank's head_dim slice (hd_l < hd), the scores are that slice's partial
     sums, reduced over ``model``, and the output's slices are gathered.
-    Returns (B, 1, H * hd)."""
+    Where the cache is the rank's slice of a sequence split over ``seq``
+    (:func:`split_sequence`), the softmax is combined over ``seq`` by three
+    all-reduces: the maximum of the ranks' row maxima, the sum of their
+    exponentials, and the sum of the ranks' PV products in fp32 (each
+    taken of the probabilities cast to the query dtype, as the whole
+    softmax's are), cast once; a rank whose slots are all masked adds
+    exact zeros. Returns (B, 1, H * hd)."""
     B, H, hd = q.shape
     K, hd_l = cache_k.shape[2], cache_k.shape[3]
     qh = tp.part(q, hd_l, g).reshape(B, K, H // K, hd_l)
@@ -396,15 +432,22 @@ def attend_cache(q, cache_k, cache_v, cfg, *, valid=None, cap=None, g=None):
     scores = softcap(scores, cap)
     if valid is not None:
         scores = scores.masked_fill(~valid[None, None, None], -1e30)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkrs,bskh->bkrh", probs, cache_v)
+    if seq is None:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkrs,bskh->bkrh", probs, cache_v)
+    else:
+        top = tp.all_max(scores.amax(-1, keepdim=True), seq)
+        e = torch.exp(scores - top)
+        probs = (e / tp.reduce(e.sum(-1, keepdim=True), seq)).to(q.dtype)
+        out = torch.einsum("bkrs,bskh->bkrh", probs.float(), cache_v.float())
+        out = tp.reduce(out, seq).to(q.dtype)
     if hd_l < hd:
         out = tp.gather(out, -1, g)
     return out.reshape(B, 1, H * hd)
 
 
 def decode_attention(params, x, cache_k, cache_v, pos, cfg, *,
-                     window: int | None, cap: float | None):
+                     window: int | None, cap: float | None, seq=None):
     """Single-token decode against a KV cache.
 
     x: (B, 1, D); cache_k/v: (B, S_max, K, hd); pos: int32 scalar tensor
@@ -417,10 +460,16 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg, *,
     changed. Under a ``model`` axis the cache is the rank's head_dim slice
     (``cache_specs_tree``): the rank writes that slice of the new token's
     K/V (the small q/k/v gathered from the column blocks) and attends as
-    :func:`attend_cache` does.
+    :func:`attend_cache` does. Where the cache is the rank's slice of a
+    sequence split over ``seq`` (:func:`split_sequence`), S_max is the
+    global length, the slot and the mask are in global indices, only the
+    rank that holds the slot changes it (the row is written back as it was
+    elsewhere: no branch on ``pos`` and no host sync), and the softmax is
+    combined over ``seq``.
     """
     B, _, D = x.shape
-    S = cache_k.shape[1]
+    S_l = cache_k.shape[1]
+    S = S_l * tp.size(seq)
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     g = model_group()
     q, k, v, sq, skv = _qkv(params, x, x, cfg, g)
@@ -437,15 +486,22 @@ def decode_attention(params, x, cache_k, cache_v, pos, cfg, *,
     slot = pos % S if window is not None else pos
     slot = slot.clamp(0, S - 1).to(torch.int64).reshape(1)
     hd_l = cache_k.shape[-1]
-    cache_k.index_copy_(1, slot, tp.part(k, hd_l, g).to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, tp.part(v, hd_l, g).to(cache_v.dtype))
-    kidx = torch.arange(S, dtype=torch.int32, device=x.device)
+    k, v = tp.part(k, hd_l, g).to(cache_k.dtype), tp.part(v, hd_l, g).to(cache_v.dtype)
+    first = tp.rank(seq) * S_l                   # the rank's first slot
+    if seq is not None:
+        own = (slot >= first) & (slot < first + S_l)
+        slot = (slot - first).clamp(0, S_l - 1)
+        k = torch.where(own, k, cache_k.index_select(1, slot))
+        v = torch.where(own, v, cache_v.index_select(1, slot))
+    cache_k.index_copy_(1, slot, k)
+    cache_v.index_copy_(1, slot, v)
+    kidx = torch.arange(first, first + S_l, dtype=torch.int32, device=x.device)
     if window is not None:
         valid = kidx < torch.clamp(pos + 1, max=S)
     else:
         valid = kidx <= pos
     out = attend_cache(q.reshape(B, H, hd), cache_k, cache_v, cfg, valid=valid,
-                       cap=cap, g=g)
+                       cap=cap, g=g, seq=seq)
     return out_proj(out, params["wo"], g, False), cache_k, cache_v
 
 

@@ -42,7 +42,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (out_proj, attend_cache, attention,
                                        cache_kv, decode_attention, init_attention,
                                        init_mlp, init_moe, mlp, model_group, moe,
-                                       normal, rms_norm, softcap)
+                                       normal, rms_norm, sequence_group, softcap)
 from repro_torch.models.ssm import init_ssm, init_ssm_cache, ssd_apply, ssd_decode
 
 Params = dict[str, Any]
@@ -365,7 +365,10 @@ def decode_step(params, cache, token, cfg: ArchConfig, memory=None, fetch=None):
     place, one slot or state per sublayer through its view of the stacked
     leaf, and the cache returned holds the same tensors with ``pos`` + 1;
     clone the cache first to keep the one passed in. ``fetch`` maps each
-    block's parameters before it runs."""
+    block's parameters before it runs. Under
+    :func:`~repro_torch.models.layers.split_sequence` each attention
+    sublayer, self and cross, attends on the rank's slice of its cache
+    where its leaves are split."""
     plan = block_plan(cfg)
     pos = cache["pos"]
     x = embed(params, token, cfg)
@@ -381,34 +384,37 @@ def decode_step(params, cache, token, cfg: ArchConfig, memory=None, fetch=None):
                 out, _ = ssd_decode(lp["ssm"], h, lc, cfg)
                 x = x + out
             elif sub.kind == "cross":
-                att = _cross_decode(lp, h, lc, cfg)
+                att = _cross_decode(lp, h, lc, cfg, sequence_group(f"l{i}", "k"))
                 x = x + _gate(lp, x) * att
             else:
                 out, _, _ = decode_attention(lp["attn"], h, lc["k"], lc["v"],
                                              pos, cfg, window=sub.window,
-                                             cap=sub.cap)
+                                             cap=sub.cap,
+                                             seq=sequence_group(f"l{i}", "k"))
                 x = x + out
                 if sub.kind == "attn_cross":
                     hx = rms_norm(x, lp["norm1x"], cfg.norm_eps)
                     x = x + _cross_decode(
                         {"attn": lp["xattn"]}, hx,
-                        {"k": lc["xk"], "v": lc["xv"]}, cfg)
+                        {"k": lc["xk"], "v": lc["xv"]}, cfg,
+                        sequence_group(f"l{i}", "xk"))
             x = _ffn(x, lp, sub, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = whole_logits(_logits(params, x, cfg)[:, 0], cfg)
     return logits, {"blocks": cache["blocks"], "pos": pos + 1}
 
 
-def _cross_decode(lp, h, lc, cfg):
+def _cross_decode(lp, h, lc, cfg, seq=None):
     """Cross-attention against cached memory K/V (decode path); under a
-    ``model`` axis as :func:`~repro_torch.models.layers.decode_attention`
-    attends."""
+    ``model`` axis, and on the rank's slice of a cache split along its
+    sequence over ``seq``, as
+    :func:`~repro_torch.models.layers.decode_attention` attends."""
     B = h.shape[0]
     H, hd = cfg.n_heads, cfg.hd
     wq = lp["attn"]["wq"]
     g = model_group() if wq.shape[1] < H * hd else None
     q = tp.gather(tp.copy(h, g) @ wq, -1, g).reshape(B, H, hd)
-    out = attend_cache(q, lc["k"], lc["v"], cfg, g=model_group())
+    out = attend_cache(q, lc["k"], lc["v"], cfg, g=model_group(), seq=seq)
     return out_proj(out, lp["attn"]["wo"], g, False)
 
 

@@ -49,6 +49,14 @@ The train step (:func:`make_mesh_train_step`) on every rank:
 
 The prefill and decode steps gather each block's FSDP shards where the
 block runs and drop them after it, and the other leaves' once a call.
+Where the batch is smaller than the data axes (``long_500k``'s batch of
+one), ``cache_specs_tree`` splits a KV cache's sequence over ``data``: the
+prefill computes the whole cache on every rank and keeps the rank's slice
+of it, cut from the local tensor, and the decode step attends on that
+slice, written in place, its softmax combined over ``data`` by three
+``c10d`` all-reduces an attention sublayer
+(:func:`~repro_torch.models.layers.split_sequence`). No cache leaf is
+gathered or redistributed.
 
 A mesh axis of one rank is never redistributed over: a shard over it is
 the whole, so the steps issue no DTensor collective there (gloo runs no
@@ -345,13 +353,25 @@ def make_mesh_train_step(cfg: ArchConfig, opt: AdamWConfig, mesh, shardings: dic
 
 
 # ------------------------------------------------------------ serve steps
-def _rows(mesh, placements) -> list:
-    """The placements a step computes a cache leaf in: its batch rows over
-    the data axes and its split over ``model`` kept, any other data-axis
-    split (the sequence of ``long_500k``'s caches) gathered."""
-    dp = dp_axes(mesh)
-    return [p if name == "model" or (name in dp and p.is_shard() and p.dim == 1)
-            else Replicate() for name, p in zip(mesh_shape(mesh), placements)]
+def _splits_sequence(mesh, placements) -> bool:
+    """Whether a cache leaf's placements split its sequence (dim 2) over
+    ``data`` of more than one rank, as ``cache_specs_tree`` splits
+    ``long_500k``'s caches (``pod`` never splits them)."""
+    sizes = mesh_shape(mesh)
+    p = dict(zip(sizes, placements)).get("data")
+    return sizes.get("data", 1) > 1 and p.is_shard() and p.dim == 2
+
+
+def _seq_split(mesh, cache) -> dict:
+    """``{sublayer: {leaf names}}`` of a placed cache's leaves whose
+    sequence is split over ``data`` (the argument of
+    :func:`~repro_torch.models.layers.split_sequence`)."""
+    out: dict = {}
+    for key, sub in cache["blocks"].items():
+        for name, dt in sub.items():
+            if _splits_sequence(mesh, dt.placements):
+                out.setdefault(key, set()).add(name)
+    return out
 
 
 def make_mesh_prefill_step(cfg: ArchConfig, mesh, max_seq: int | None = None):
@@ -361,7 +381,10 @@ def make_mesh_prefill_step(cfg: ArchConfig, mesh, max_seq: int | None = None):
     logits are the share's (every vocabulary column), and the cache is
     DTensors placed by
     :func:`~repro_torch.distributed.sharding.cache_specs_tree`, each rank
-    having written its own shard of every leaf."""
+    having written its own shard of every leaf. Where a leaf's sequence is
+    split over ``data`` (a batch smaller than the data axes), every rank
+    computes the whole leaf and keeps its slice of the sequence, cut from
+    its local tensor (no collective)."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -372,17 +395,17 @@ def make_mesh_prefill_step(cfg: ArchConfig, mesh, max_seq: int | None = None):
                                           max_seq=max_seq, fetch=fetch)
         B, S = batch["tokens"].shape
         seq = max_seq or S
-        specs = cache_specs_tree(abstract_cache(cfg, B, seq), mesh, cfg,
-                                 ShapeConfig("prefill", seq, B, "decode"))
+        whole = abstract_cache(cfg, B, seq)
+        specs = cache_specs_tree(whole, mesh, cfg, ShapeConfig("prefill", seq, B, "decode"))
 
-        def place(w, spec):
+        def place(w, spec, like):
             want = list(spec.placements())
-            dt = DTensor.from_local(w, mesh, _same(mesh, want, _rows(mesh, want)),
-                                    run_check=False)
-            return DTensor.from_local(_to(dt, want), mesh, want, run_check=False,
-                                      shape=dt.shape, stride=dt.stride())
+            if _splits_sequence(mesh, want):
+                w = w.chunk(mesh_shape(mesh)["data"], 2)[mesh.get_local_rank("data")].clone()
+            return DTensor.from_local(w, mesh, want, run_check=False, shape=like.shape,
+                                      stride=like.stride())
 
-        return logits, tree_map(place, cache, specs)
+        return logits, tree_map(place, cache, specs, whole)
 
     return prefill_step
 
@@ -392,28 +415,29 @@ def make_mesh_decode_step(cfg: ArchConfig, mesh):
     parameters and a cache placed on ``mesh``: the parameters' FSDP shards
     gathered a block at a time, one token of the rank's batch rows decoded
     tensor-parallel over ``model`` against the rank's shard of the cache,
-    written in place (a cache split over a data axis along its sequence is
-    gathered for the step and cut back), and the logits gathered over the
-    data axes (replicated, as the reference's ``out_shardings``)."""
+    written in place, and the logits gathered over the data axes
+    (replicated, as the reference's ``out_shardings``). A cache leaf split
+    along its sequence over ``data`` stays the rank's slice: attention runs
+    on it and combines its softmax over ``data``
+    (:func:`~repro_torch.models.layers.split_sequence`); no leaf is
+    gathered or redistributed."""
 
     @torch.no_grad()
     def decode_step(params, cache, batch):
         share, split = _share(batch, mesh)
-        work = tree_map(lambda dt: _to(dt, _rows(mesh, dt.placements)), cache)
-        with use_mesh(mesh), layers.split_batch(_dp_groups(mesh) if split else []):
+        work = tree_map(local, cache)
+        seq = _seq_split(mesh, cache)
+        with use_mesh(mesh), layers.split_batch(_dp_groups(mesh) if split else []), \
+                layers.split_sequence(mesh.get_group("data") if seq else None, seq):
             gather, fetch = _fsdp(mesh, params)
             logits, work = serve_decode(gather(tree_map(local, params)), work, share, cfg,
                                         fetch=fetch)
         for w, dt in zip(leaves(work), leaves(cache)):
-            if w is local(dt):
-                continue  # written in place
-            rows = _same(mesh, dt.placements, _rows(mesh, dt.placements))
-            back = DTensor.from_local(w, mesh, rows, run_check=False)
-            local(dt).copy_(_to(back, list(dt.placements)))
+            if w is not local(dt):  # the position; the blocks' are written in place
+                local(dt).copy_(w)
         if split:  # every share's rows, outer axis major (c10d all-gathers)
             for g in reversed(_dp_groups(mesh)):
                 logits = tp.gather(logits, 0, g)
         return logits, cache
 
     return decode_step
-

@@ -202,9 +202,11 @@ def serve_worker(rank, world, out_dir, jobs):
     """For each job ``(name, cfg, (data, model), fsdp)``: the parameters
     placed by ``param_shardings``; the mesh prefill step of a (4, 16) batch
     (each rank its share of the rows) and the mesh decode step of one token
-    against the one-device prefill's cache placed by ``cache_specs_tree``.
-    Every rank saves its prefill logits and data index; rank 0 the decode's
-    logits and its cache gathered."""
+    against the one-device prefill's cache placed by ``cache_specs_tree``
+    (its batch rows over ``data``; a batch smaller than the data axes
+    would split its sequence instead, :func:`seq_cache_worker`). Every rank
+    saves its prefill logits and data index; rank 0 the decode's logits
+    and its cache gathered."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed.sharding import (cache_specs_tree, dp_axes,
@@ -236,6 +238,98 @@ def serve_worker(rank, world, out_dir, jobs):
         if rank == 0:
             torch.save({"logits": d_logits, "cache": whole},
                        os.path.join(out_dir, f"{name}-decode.pt"))
+
+
+SEQ_MAX, SEQ_STEPS = 20, 6  # the batch-1 cache's slots and decode steps
+
+
+def load_reference_params(npz: str) -> dict:
+    """The port's parameters from the reference's leaves saved by path in
+    ``npz``."""
+    import numpy as np
+
+    from repro_torch.convert import params_from_reference
+
+    tree: dict = {}
+    with np.load(npz) as f:
+        for key in f.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = f[key]
+    return params_from_reference(tree, device="cpu")
+
+
+def seq_cache_worker(rank, world, out_dir, jobs):
+    """For each job ``(name, cfg, (data, model), prompt, npz)``: the
+    parameters (the reference's in ``npz``, converted; the port's from seed
+    0 where ``npz`` is None) placed by
+    ``param_shardings``, the mesh prefill of a batch of one ``prompt``-token
+    row into ``SEQ_MAX`` slots (a batch smaller than the data axes, so
+    ``cache_specs_tree`` splits the KV caches' sequence over ``data`` where
+    it divides) and ``SEQ_STEPS`` decode steps, each under its own
+    collective counter. Every rank saves its logits, each decode step's
+    collectives by mesh axis (:func:`by_axis`) and kind, its cache leaves'
+    local shapes and which leaves are split; rank 0 also the cache
+    gathered whole after the steps."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import param_shardings, place_tree
+    from repro_torch.models.model import build_params, demo_batch
+    from repro_torch.train.mesh_step import (_seq_split, local, make_mesh_decode_step,
+                                             make_mesh_prefill_step)
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    for name, cfg, shape, prompt, npz in jobs:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        params = (load_reference_params(npz) if npz
+                  else build_params(cfg, seed=0, device="cpu"))
+        placed = place_tree(params, param_shardings(params, mesh, cfg))
+        batch = demo_batch(cfg, 1, prompt, kind="prefill", seed=1, device="cpu")
+        logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ_MAX)(placed, batch)
+        decode = make_mesh_decode_step(cfg, mesh)
+        steps, counts = [], []
+        for i in range(SEQ_STEPS):
+            token = demo_batch(cfg, 1, 1, kind="decode", seed=2 + i, device="cpu")
+            with CollectiveCounter() as cc:
+                d_logits, cache = decode(placed, cache, token)
+            counts.append({**by_axis(cc, mesh), "kinds": dict(cc.calls),
+                           "bytes": dict(cc.bytes)})
+            steps.append(d_logits)
+        torch.save({"logits": logits, "steps": steps, "counts": counts,
+                    "split": _seq_split(mesh, cache),
+                    "local": {p: tuple(local(t).shape) for p, t in leaves_with_paths(cache)}},
+                   os.path.join(out_dir, f"{name}-rank{rank}.pt"))
+        whole = tree_map(lambda t: t.full_tensor().clone(), cache)
+        if rank == 0:
+            torch.save(whole, os.path.join(out_dir, f"{name}-cache.pt"))
+
+
+def attend_split_worker(rank, world, out_dir, cases):
+    """For each case ``(name, S, pos)``: a bf16 query of one token (2, 8,
+    64) against a bf16 cache of ``S`` slots of 2 KV heads, drawn from the
+    case's index on every rank, attended whole (``attend_cache`` as one
+    device runs it) and on the rank's S/world slots with its softmax
+    combined over the world group, the slots past ``pos`` masked in both.
+    Every rank saves both outputs."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.models.layers import attend_cache
+
+    for i, (name, S, pos) in enumerate(cases):
+        rng = np.random.default_rng(i)
+        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+                   for shape in ((2, 8, 64), (2, S, 2, 64), (2, S, 2, 64)))
+        valid = torch.arange(S) <= pos
+        whole = attend_cache(q, k, v, None, valid=valid)
+        mine = slice(rank * S // world, (rank + 1) * S // world)
+        split = attend_cache(q, k[:, mine], v[:, mine], None, valid=valid[mine],
+                             seq=dist.group.WORLD)
+        torch.save({"whole": whole, "split": split},
+                   os.path.join(out_dir, f"{name}-rank{rank}.pt"))
 
 
 def one_device_run(cfg, steps: int, microbatches: int = 1, batch: int = BATCH,
@@ -570,25 +664,15 @@ def tp_prefill_worker(rank, world, out_dir, cases):
     parameters (``npz`` of its leaves by path) converted, placed on that
     mesh and prefilled as :func:`serve_steps` does; every rank saves its
     logits (its data share's rows) and data index."""
-    import numpy as np
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.convert import params_from_reference
     from repro_torch.distributed.sharding import dp_axes, param_shardings, place_tree
     from repro_torch.models.model import demo_batch
     from repro_torch.train.mesh_step import make_mesh_prefill_step
 
     for name, cfg, npz, shape in cases:
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-        tree: dict = {}
-        with np.load(npz) as f:
-            for key in f.files:
-                node = tree
-                *parents, leaf = key.split("/")
-                for k in parents:
-                    node = node.setdefault(k, {})
-                node[leaf] = f[key]
-        params = params_from_reference(tree, device="cpu")
+        params = load_reference_params(npz)
         placed = place_tree(params, param_shardings(params, mesh, cfg))
         batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
         logits, _ = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ)(placed, batch)

@@ -22,6 +22,11 @@
   cache within 1e-4 of the largest value (the whole-model bound of
   ``tests/test_torch_model.py``): qwen3-moe (attention caches, MoE routed
   over the whole batch) with FSDP, and mamba2-780m (SSM states).
+* A batch-1 decode of the jamba smoke config at a fake (4, 1) mesh, its
+  attention cache split along its sequence over ``data``: the dry-run's
+  collectives equal a real gloo (4, 1) run's decode step, kind by kind, in
+  calls and bytes (3 all-reduces over ``data`` for the one attention
+  sublayer), and neither gathers anything.
 * A rank's peak live bytes (``peak_live_bytes``) of a yi-9b smoke config
   widened until its MLP leaves reach the FSDP threshold (d_model 256, d_ff
   4,096), traced with FSDP at a fake (4, 1) mesh: at least its argument
@@ -42,7 +47,8 @@ import os
 import pytest
 import torch
 
-from _torch_dist import BATCH, SEQ, run_ranks, serve_worker, smoke_cfg, train_worker
+from _torch_dist import (BATCH, SEQ, SEQ_MAX, run_ranks, seq_cache_worker, serve_worker,
+                         smoke_cfg, train_worker)
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.config import ShapeConfig
@@ -112,6 +118,20 @@ def test_dryrun_of_work_on_a_ranks_share(arch, changes, mesh, tmp_path):
         assert traced[m]["flops"] * m == traced[1]["flops"]
     else:  # below 1/m of (d, 1)'s: the experts there run every slot
         assert traced[m]["flops"] * m < traced[1]["flops"]
+
+
+def test_dryrun_of_a_sequence_split_decode(tmp_path):
+    cfg = smoke_cfg("jamba-1.5-large-398b", 512)
+    jobs = [("jamba", cfg, (4, 1), SEQ, None)]
+    out = run_ranks(4, seq_cache_worker, (jobs,), tmp_path)
+    real = torch.load(os.path.join(out, "jamba-rank0.pt"), weights_only=False)["counts"][0]
+    traced = dryrun.trace_step(cfg, ShapeConfig("smoke", SEQ_MAX, 1, "decode"), 4,
+                               lambda dt: make_host_mesh(4, 1, device_type=dt))
+    assert traced["collective_calls"] == real["kinds"]
+    assert traced["collectives"] == real["bytes"]
+    # the softmax combined over data: 3 all-reduces for the block's attention
+    assert real["calls"] == {("data", "all-reduce"): 3 * cfg.n_blocks}
+    assert "all-gather" not in traced["collective_calls"]
 
 
 def test_dryrun_peak_gathers_a_block_at_a_time():
