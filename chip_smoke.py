@@ -283,6 +283,13 @@ TP_SEQ_PROMPT, TP_SEQ_MAX, TP_SEQ_STEPS = 16, 20, 6
 #: on the card: a 48-token prompt into 64 slots (32 a data rank), 8 decode steps
 TP_SEQ_FULL = ("h2o-danube-full", "h2o-danube-1.8b", 4)
 TP_SEQ_FULL_PROMPT, TP_SEQ_FULL_MAX, TP_SEQ_FULL_STEPS = 48, 64, 8
+#: and mixtral-8x22b at full width (d_model 6,144, d_ff 16,384) with 3
+#: experts, in fp32, cut to its layers, with FSDP, its weights drawn on the
+#: card: a prefill and train batch of TP_BATCH x TP_MOE_SEQ = 4,096 tokens,
+#: so that the capacity's dispatch takes the reference's index-gather form
+#: (the payload scatter at a decode step's TP_BATCH tokens)
+TP_MOE_FULL = ("mixtral-full-e3", "mixtral-8x22b", 1)
+TP_MOE_SEQ = 1024
 TP_BATCH, TP_SEQ = 4, 16  # their prefill batch; the cache holds TP_SEQ + TP_DECODE
 TP_DECODE = 4  # decode steps after each prefill
 TP_TRAIN_STEPS = 2  # train steps from step 50
@@ -4155,9 +4162,12 @@ def dist_phase(card: str, dev: torch.device, counts: PathCounts, trained: dict,
     takes one rank a device), tensor-parallel over ``model``: the
     ``TP_SMOKE`` configs (among them attention on a rank's query heads and
     on its queries) and the ``TP_SMOKE_DP`` ones (MoE capacity slots split
-    over ``data``; a yi-9b widened to the FSDP threshold, its state placed
+    over ``data``, the token rows gathered and the partial outputs
+    reduce-scattered, :func:`capacity_check`; a yi-9b widened to the FSDP threshold, its state placed
     with FSDP, :func:`fsdp_check`; ``TP_FSDP_FULL``, yi-9b at full width
-    cut to 4 blocks with FSDP, :func:`fsdp_full_check`; and ``TP_Q8`` and
+    cut to 4 blocks with FSDP, :func:`fsdp_full_check`; ``TP_MOE_FULL``,
+    mixtral-8x22b at full width with 3 experts and FSDP over 4,096 tokens,
+    :func:`moe_full_check`; and ``TP_Q8`` and
     ``TP_Q8_FULL``, those two yi-9b with FSDP and 8-bit moments, each rank
     updating its own q8 rows, their train steps held step by step,
     :func:`q8_check`; and, at a batch of one, ``TP_SEQ_SPLIT`` and
@@ -4454,6 +4464,17 @@ def _tp_full_cfg():
     return replace(cfg, n_layers=blocks * cfg.layers_per_block, dtype="float32")
 
 
+def _moe_full_cfg():
+    """The ``TP_MOE_FULL`` config: its architecture at full width with 3
+    experts (which do not divide over ``model``) in fp32, cut in depth."""
+    from dataclasses import replace
+
+    from repro_torch.configs import REGISTRY
+
+    _, arch, layers = TP_MOE_FULL
+    return replace(REGISTRY[arch], n_layers=layers, n_experts=3, dtype="float32")
+
+
 def _tp_full_params(cfg, dev: torch.device) -> dict:
     """Its parameters drawn on the card from the card's generator at seed 0:
     the same weights in every process on the card, in seconds where the
@@ -4473,9 +4494,9 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
     gradient change of ``TP_TOL`` of the leaf's largest gradient: Adam
     divides every entry by its own magnitude, as the CPU tests allow) and
     the state's shardings on its ranks' mesh; under ``"seq"`` the batch-1
-    cases' (:func:`seq_reference`); for ``TP_FSDP_FULL`` (on the
-    card's generator, :func:`_tp_full_params`) the logits, the losses and
-    the shardings; and, on ``meta`` tensors,
+    cases' (:func:`seq_reference`); for ``TP_FSDP_FULL`` and
+    ``TP_MOE_FULL`` (on the card's generator, :func:`_tp_full_params`) the
+    logits, the losses and the shardings; and, on ``meta`` tensors,
     mamba2-780m's full-width fp32 parameter bytes and the matmul flops of
     one decode step of the lm phase's prompt batch (5 rows, a cache of
     ``max_seq``)."""
@@ -4548,36 +4569,37 @@ def tp_reference(dev: torch.device, max_seq: int) -> dict:
                                                       {"data": mesh[0], "model": mesh[1]},
                                                       cfg, fsdp=name in TP_FSDP)}
         out["seq"] = seq_reference(dev)
-        # the full-width FSDP case: logits and losses only (its state is
+        # the full-width FSDP cases: logits and losses only (their state is
         # held leaf by leaf at smoke width)
-        cfg = _tp_full_cfg()
-        opt = AdamWConfig()
-        params = _tp_full_params(cfg, dev)
-        state = {"params": params, "opt": init_state(params, opt),
-                 "step": torch.full((), 50, dtype=torch.int32, device=dev)}
-        with torch.no_grad():
-            logits, cache = serve_prefill(
-                params, demo_batch(cfg, TP_BATCH, TP_SEQ, kind="prefill", seed=1,
-                                   device=dev), cfg, max_seq=TP_SEQ + TP_DECODE)
-            steps = []
-            for i in range(TP_DECODE):
-                tok = demo_batch(cfg, TP_BATCH, 1, kind="decode", seed=2 + i, device=dev)
-                lg, cache = serve_decode(params, cache, tok, cfg)
-                steps.append(lg.cpu())
-        del params, cache
-        step = make_train_step(cfg, opt)
-        losses = []
-        for i in range(TP_TRAIN_STEPS):
-            state, metrics = step(state, demo_batch(cfg, TP_BATCH, TP_SEQ, kind="train",
-                                                    seed=i, device=dev))
-            losses.append(float(metrics["loss"]))
-        out[TP_FSDP_FULL[0]] = {
-            "logits": logits.cpu(), "steps": steps, "losses": losses,
-            "shardings": state_shardings(make_abstract_state(cfg, opt),
-                                         {"data": TP_MESH_DP[0], "model": TP_MESH_DP[1]},
-                                         cfg, fsdp=True)}
-        del state, step, logits
-        torch.cuda.empty_cache()
+        for name, cfg, seq in [(TP_FSDP_FULL[0], _tp_full_cfg(), TP_SEQ),
+                               (TP_MOE_FULL[0], _moe_full_cfg(), TP_MOE_SEQ)]:
+            opt = AdamWConfig()
+            params = _tp_full_params(cfg, dev)
+            state = {"params": params, "opt": init_state(params, opt),
+                     "step": torch.full((), 50, dtype=torch.int32, device=dev)}
+            with torch.no_grad():
+                logits, cache = serve_prefill(
+                    params, demo_batch(cfg, TP_BATCH, seq, kind="prefill", seed=1,
+                                       device=dev), cfg, max_seq=seq + TP_DECODE)
+                steps = []
+                for i in range(TP_DECODE):
+                    tok = demo_batch(cfg, TP_BATCH, 1, kind="decode", seed=2 + i, device=dev)
+                    lg, cache = serve_decode(params, cache, tok, cfg)
+                    steps.append(lg.cpu())
+            del params, cache
+            step = make_train_step(cfg, opt)
+            losses = []
+            for i in range(TP_TRAIN_STEPS):
+                state, metrics = step(state, demo_batch(cfg, TP_BATCH, seq, kind="train",
+                                                        seed=i, device=dev))
+                losses.append(float(metrics["loss"]))
+            out[name] = {
+                "logits": logits.cpu(), "steps": steps, "losses": losses,
+                "shardings": state_shardings(make_abstract_state(cfg, opt),
+                                             {"data": TP_MESH_DP[0], "model": TP_MESH_DP[1]},
+                                             cfg, fsdp=True)}
+            del state, step, logits
+            torch.cuda.empty_cache()
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     cfg32 = replace(REGISTRY[LM_ARCH], vocab_size=VOCAB_SIZE, dtype="float32")
@@ -4801,17 +4823,17 @@ def tp_check(card: str, mesh: tuple, got: list, want: dict, fp32_card: dict | No
                                          f"{TP_TRAIN_STEPS} steps: {float(diff.max()):.3e} "
                                          f"> {bound:.3e}")
         worst[name] = max(errs)
-    # the capacity split's dispatch and return are all-to-alls over data
-    a2a = [rank["smoke"][n]["data_all_to_all"] for rank in got for n in _tp_cases(mesh)
-           if n not in TP_FSDP]
-    if tuple(mesh) == TP_MESH_DP and not all(a2a):
-        raise AssertionError(f"dist: ranks of {mesh} made {a2a} all-to-alls over data: "
-                             "the MoE capacity did not split")
+    # the capacity split's own signature, recorded by each rank
+    split = "; ".join(capacity_check(mesh, n, _tp_cfg(n), TP_SEQ,
+                                     [rank["smoke"][n] for rank in got])
+                      for n in _tp_cases(mesh) if n not in TP_FSDP) \
+        if tuple(mesh) == TP_MESH_DP else ""
     for name in TP_FSDP & set(_tp_cases(mesh)):
         fsdp_check(card, mesh, name, _tp_cfg(name), want[name]["shardings"],
                    [rank["smoke"][name] for rank in got])
     if tuple(mesh) == TP_MESH_DP:
         fsdp_full_check(card, mesh, got, want[TP_FSDP_FULL[0]])
+        moe_full_check(card, mesh, got, want[TP_MOE_FULL[0]])
     log("dist", f"[{card}] (e) {len(got)} ranks of a {mesh} mesh on the card, tensor-parallel "
         f"over model, meeting over gloo with CUDA tensors; {len(_tp_cases(mesh))} smoke configs "
         f"in fp32 (TF32 off): prefill ({TP_BATCH}, {TP_SEQ}), {TP_DECODE} decode steps and "
@@ -4820,7 +4842,7 @@ def tp_check(card: str, mesh: tuple, got: list, want: dict, fp32_card: dict | No
         f"beyond each step's Adam allowance); worst logit error per arch: "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
         + f"; no model-sharded leaf gathered over model; {calls} collectives over model "
-        f"in all{f', all-to-alls over data a rank {a2a}' if tuple(mesh) == TP_MESH_DP else ''}"
+        f"in all{f'; the MoE capacity split over data: {split}' if split else ''}"
         f"; the one-device runs {ref_s:.1f} s, the ranks {ranks_s:.1f} s from their "
         f"start (each: {', '.join(str(x['times']) for x in got)})")
     if fp32_card is None:
@@ -4899,16 +4921,19 @@ def fsdp_check(card: str, mesh: tuple, name: str, cfg, shardings: dict,
         f"against {need} x {mem[0]['block_bytes']} B (a block's FSDP leaves gathered)")
 
 
-def fsdp_full_check(card: str, mesh: tuple, got: list, want: dict) -> None:
-    """The ``TP_FSDP_FULL`` case on each rank of ``mesh``: its prefill
+def _full_case(name: str, mesh: tuple, got: list, want: dict, ids: bool) -> float:
+    """A full-width case ``name`` on each rank of ``mesh``: its prefill
     logits (the rank's data rows), decode logits and losses within
-    ``TP_TOL`` of the card's one-device run with equal greedy ids, then
-    :func:`fsdp_check`. Every check raises."""
-    name = TP_FSDP_FULL[0]
+    ``TP_TOL`` of the card's one-device run (with ``ids``, equal greedy
+    ids too), and no leaf split over ``model`` gathered over it. Raises;
+    returns the worst logit error."""
     rows = TP_BATCH // mesh[0]
     errs = []
     for r, rank in enumerate(got):
         g, at = rank[name], _tp_at(r, mesh)
+        if g["bad"]:
+            raise AssertionError(f"dist: rank {r} gathered model-sharded leaves of "
+                                 f"{name} over model: {g['bad'][:3]}")
         share = want["logits"][at["data"] * rows:(at["data"] + 1) * rows]
         for what, a, b in [("prefill", g["logits"], share)] + [
                 (f"decode {i + 1}", x, y) for i, (x, y) in enumerate(zip(g["steps"],
@@ -4917,21 +4942,47 @@ def fsdp_full_check(card: str, mesh: tuple, got: list, want: dict) -> None:
             errs.append(float((a.double() - b.double()).abs().max()
                               / b.double().abs().max()))
             if a.shape != b.shape or errs[-1] > TP_TOL or \
-                    not torch.equal(a.argmax(-1), b.argmax(-1)):
+                    (ids and not torch.equal(a.argmax(-1), b.argmax(-1))):
                 raise AssertionError(f"dist: {name} rank {r} {what} logits differ from the "
                                      f"one-device run by {errs[-1]:.3e}, or their ids")
         for a, b in zip(g["losses"], want["losses"], strict=True):
             if abs(a - b) > TP_TOL * abs(b):
                 raise AssertionError(f"dist: {name} rank {r} losses {g['losses']} "
                                      f"against {want['losses']}")
+    return max(errs)
+
+
+def fsdp_full_check(card: str, mesh: tuple, got: list, want: dict) -> None:
+    """The ``TP_FSDP_FULL`` case on each rank of ``mesh``: :func:`_full_case`
+    with equal greedy ids, then :func:`fsdp_check`. Every check raises."""
+    name = TP_FSDP_FULL[0]
+    worst = _full_case(name, mesh, got, want, ids=True)
     cfg = _tp_full_cfg()
     log("dist", f"[{card}] (e) {name}: {cfg.name} at full width (d_model {cfg.d_model}, "
         f"d_ff {cfg.d_ff}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads, vocab "
         f"{cfg.vocab_size}) in fp32, {cfg.n_blocks} blocks, on the {mesh} ranks with FSDP: "
         f"prefill, {TP_DECODE} decode steps and losses {got[0][name]['losses']} == the "
         f"card's one-device run's {want['losses']} within {TP_TOL} (worst logit error "
-        f"{max(errs):.2e}, greedy ids equal)")
+        f"{worst:.2e}, greedy ids equal)")
     fsdp_check(card, mesh, name, cfg, want["shardings"], [rank[name] for rank in got])
+
+
+def moe_full_check(card: str, mesh: tuple, got: list, want: dict) -> None:
+    """The ``TP_MOE_FULL`` case on each rank of ``mesh``: :func:`_full_case`
+    (4,096 prefill rows: a greedy id may tie within the bound, so ids are
+    not asked), then :func:`capacity_check`. Every check raises."""
+    name = TP_MOE_FULL[0]
+    worst = _full_case(name, mesh, got, want, ids=False)
+    cfg = _moe_full_cfg()
+    split = capacity_check(mesh, name, cfg, TP_MOE_SEQ, [rank[name] for rank in got])
+    log("dist", f"[{card}] (e) {name}: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, {cfg.n_heads} query and {cfg.n_kv_heads} KV heads, vocab "
+        f"{cfg.vocab_size}) with {cfg.n_experts} experts (top-{cfg.top_k}) in fp32, "
+        f"cut to {cfg.n_layers} layer, on the {mesh} ranks with FSDP: prefill ({TP_BATCH}, "
+        f"{TP_MOE_SEQ}), {TP_DECODE} decode steps and losses {got[0][name]['losses']} == "
+        f"the card's one-device run's {want['losses']} within {TP_TOL} (worst logit error "
+        f"{worst:.2e}); the capacity split over data: {split}; the case "
+        f"{', '.join(str(x['times']['moe_full_s']) for x in got)} s of a rank")
 
 
 def _q8_case(name: str, dev, zeros: bool = False) -> tuple:
@@ -5128,14 +5179,89 @@ def q8_check(card: str, dev: torch.device, mesh: tuple, got: list, name: str,
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def expert_flops(shapes: set):
+    """A dispatch mode whose ``calls`` lists the flops of every op that
+    ``FlopCounterMode`` counts and that reads an expert weight (an operand
+    of one of ``shapes``: (E, D, F/m) or (E, F/m, D), whole over ``data``):
+    the SwiGLU's three matmuls forward and their input gradients backward,
+    2 E S D F/m each for the S capacity slots the rank ran them on."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class ExpertFlops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls: list[int] = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None and any(isinstance(t, torch.Tensor) and
+                                           tuple(t.shape) in shapes for t in args):
+                self.calls.append(int(formula(*args, **(kwargs or {}), out_val=out)))
+            return out
+
+    return ExpertFlops()
+
+
+def _capacity(cfg, tokens: int) -> int:
+    """``moe``'s C for a call over ``tokens`` tokens of the whole batch."""
+    c = int(np.ceil(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(8, min(c, tokens))
+
+
+def capacity_check(mesh: tuple, name: str, cfg, seq: int, got: list) -> str:
+    """The capacity split's signature on each rank of ``mesh`` for the MoE
+    case ``name`` (``cfg``, its prefill and train batches of ``TP_BATCH`` x
+    ``seq`` tokens; ``got``: each rank's results of the case): every expert
+    matmul ran on C/d slots by its counted flops (:func:`expert_flops`),
+    for the C of its call (the prefill's and train steps', or a decode
+    step's), three a MoE sublayer a pass and three more backward; over
+    ``data`` one all-gather of the d data shares' rows (D + K columns) a
+    MoE sublayer a pass (the prefill, each decode step, and twice a train
+    step: the forward and remat's), and no collective of a whole (E, C, D)
+    buffer's bytes. Raises; returns the log's words."""
+    d, m = mesh
+    E, D, K = cfg.n_experts, cfg.d_model, cfg.top_k
+    caps = {_capacity(cfg, TP_BATCH * seq), _capacity(cfg, TP_BATCH)}
+    if E % m == 0 or any(c % d for c in caps):
+        raise AssertionError(f"dist: {name} at {mesh} does not take the capacity split "
+                             f"(E {E}, C {sorted(caps)})")
+    per_slot = 2 * E * D * (cfg.d_ff // m)
+    want = {c // d for c in caps}
+    passes = cfg.n_layers // cfg.moe_every * (1 + TP_DECODE + 2 * TP_TRAIN_STEPS)
+    rows = {TP_BATCH * t * (D + K) * 4 for t in (seq, 1)}
+    whole = {E * c * D * 4 for c in caps}
+    for r, g in enumerate(got):
+        slots = {n // per_slot for n in g["experts"]}
+        if slots != want or any(n % per_slot for n in g["experts"]):
+            raise AssertionError(f"dist: {name} rank {r}: expert matmuls on {sorted(slots)} "
+                                 f"slots, not {sorted(want)}: the MoE capacity did not "
+                                 "split over data")
+        gathers = sum(k == "all-gather" and n in rows for k, n in g["data_log"])
+        if gathers != passes or \
+                len(g["experts"]) != 3 * (passes + cfg.n_layers // cfg.moe_every * TP_TRAIN_STEPS):
+            raise AssertionError(f"dist: {name} rank {r}: {gathers} all-gathers over data of "
+                                 f"the rows and {len(g['experts'])} expert matmuls for "
+                                 f"{passes} MoE sublayer passes")
+        big = [n for _, n in g["data_log"] if n in whole]
+        if big:
+            raise AssertionError(f"dist: {name} rank {r}: {len(big)} collectives over data "
+                                 f"of a whole (E, C, D) buffer's bytes {sorted(set(big))}")
+    return (f"{name}: expert matmuls on {sorted(want)} slots a rank (C {sorted(caps)} "
+            f"over {d}, by their flops), {passes} MoE sublayer passes and as many "
+            f"all-gathers of the rows over data a rank, no collective over data of "
+            f"{sorted(whole)} B")
+
+
 def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
             mesh_arg: str = "1,2") -> int:
     """``chip_smoke.py --tp-rank RANK PORT DIR [DEVICE [D,M]]``: one of the
     dist phase's tensor-parallel ranks, on the card, in a gloo group of the
     ranks of a (D, M) mesh (``TP_MESH`` or ``TP_MESH_DP``) at
     ``localhost:PORT``: its smoke configs' (``_tp_cases``) mesh prefill,
-    decode and train steps (at ``TP_MESH_DP`` ``TP_FSDP_FULL``'s too, its
-    weights drawn on the card, the q8 cases' train steps, each step's
+    decode and train steps (at ``TP_MESH_DP`` ``TP_FSDP_FULL``'s and
+    ``TP_MOE_FULL``'s too, their weights drawn on the card, the q8 cases' train steps, each step's
     state written to ``DIR/{case}-rank{RANK}-step{i}.pt``, and the batch-1
     cases, :func:`seq_split_rank`), and, where
     ``DIR/inputs.pt`` holds the lm
@@ -5225,12 +5351,17 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
             params=build_params(full_cfg, seed=0, device="cpu")), daemon=True)
         if os.path.exists(inputs):
             draw.start()
-        def run(cfg, opt, state, sh, bad, fsdp: bool) -> tuple[dict, dict]:
-            """A case's mesh prefill, decode and train steps; the results
+        def run(cfg, opt, state, sh, bad, fsdp: bool, seq: int = TP_SEQ) -> tuple[dict, dict]:
+            """A case's mesh prefill, decode and train steps (``seq``
+            tokens a row), with the flops of its expert matmuls; the
+            results (with ``fsdp`` the device memory of the train steps)
             and the state after them."""
-            with CollectiveCounter() as cc:
-                logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=TP_SEQ + TP_DECODE)(
-                    state["params"], demo_batch(cfg, TP_BATCH, TP_SEQ, kind="prefill",
+            Fl = cfg.d_ff // shape[1]
+            shapes = {(cfg.n_experts, cfg.d_model, Fl), (cfg.n_experts, Fl, cfg.d_model)}
+            ef = expert_flops(shapes if cfg.n_experts else set())
+            with CollectiveCounter() as cc, ef:
+                logits, cache = make_mesh_prefill_step(cfg, mesh, max_seq=seq + TP_DECODE)(
+                    state["params"], demo_batch(cfg, TP_BATCH, seq, kind="prefill",
                                                 seed=1, device=dev))
                 decode = make_mesh_decode_step(cfg, mesh)
                 steps = []
@@ -5244,12 +5375,15 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
             if fsdp and device_type == "cuda":
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-            with CollectiveCounter() as tc:
+            with CollectiveCounter() as tc, ef:
                 for i in range(TP_TRAIN_STEPS):
-                    state, metrics = step(state, demo_batch(cfg, TP_BATCH, TP_SEQ,
+                    state, metrics = step(state, demo_batch(cfg, TP_BATCH, seq,
                                                             kind="train", seed=i, device=dev))
                     losses.append(float(metrics["loss"]))
             out = {"logits": logits.cpu(), "steps": steps, "losses": losses,
+                   "experts": ef.calls,
+                   "data_log": [(k, n) for c in (cc, tc) for g, k, n in c.log
+                                if g == data_group],
                    **report([cc, tc], bad)}
             if fsdp:
                 out["memory"] = fsdp_memory(state, cfg, mesh, demo_batch(
@@ -5314,6 +5448,25 @@ def tp_rank(rank: int, port: int, out_dir: str, device_type: str = "cuda",
                 cfg, opt, state, sh, forbidden(abstract["params"], sh["params"]), True)
             del state
             results["times"]["fsdp_full_s"] = round(time.perf_counter() - t0, 1)
+            # mixtral at full width with 3 experts and FSDP: the capacity
+            # over data at 4,096 tokens, its weights drawn on the card
+            t0 = time.perf_counter()
+            cfg, opt = _moe_full_cfg(), AdamWConfig()
+            abstract = make_abstract_state(cfg, opt)
+            sh = state_shardings(abstract, mesh, cfg, fsdp=True)
+            whole = {"params": _tp_full_params(cfg, dev), "opt": abstract["opt"],
+                     "step": torch.full((), 50, dtype=torch.int32)}
+            state = place(whole, sh)
+            del whole
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            results[TP_MOE_FULL[0]], state = run(
+                cfg, opt, state, sh, forbidden(abstract["params"], sh["params"]), False,
+                seq=TP_MOE_SEQ)
+            del state
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
+            results["times"]["moe_full_s"] = round(time.perf_counter() - t0, 1)
             # batch 1: the caches' sequence split over data
             t0 = time.perf_counter()
             results["seq"] = seq_split_rank(mesh, dev, place, data_group)

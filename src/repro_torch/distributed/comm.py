@@ -80,8 +80,9 @@ def tensor_bytes(x) -> int:
 class CollectiveCounter(TorchDispatchMode):
     """``with CollectiveCounter() as cc: ...``; then ``cc.calls`` and
     ``cc.bytes`` map each kind to its count and bytes, ``cc.by_group``
-    each ``(group name, kind)`` to its calls, and ``cc.gathered`` lists
-    ``(group name, result shape)`` of every all-gather."""
+    each ``(group name, kind)`` to its calls, ``cc.gathered`` lists
+    ``(group name, result shape)`` of every all-gather, and ``cc.log``
+    ``(group name, kind, bytes)`` of every collective in the order issued."""
 
     def __init__(self):
         super().__init__()
@@ -89,6 +90,7 @@ class CollectiveCounter(TorchDispatchMode):
         self.bytes: Counter = Counter()
         self.by_group: Counter = Counter()
         self.gathered: list[tuple[str | None, tuple[int, ...]]] = []
+        self.log: list[tuple[str | None, str, int]] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -97,10 +99,12 @@ class CollectiveCounter(TorchDispatchMode):
             # c10d ops write their output into their first argument; the
             # functional ones return it
             result = args[0] if func.namespace == "c10d" else out
+            n = tensor_bytes(result)
             self.calls[kind] += 1
-            self.bytes[kind] += tensor_bytes(result)
+            self.bytes[kind] += n
             group = _group_name(func, args)
             self.by_group[group, kind] += 1
+            self.log.append((group, kind, n))
             if kind == "all-gather":
                 for t in (result if isinstance(result, (list, tuple)) else [result]):
                     shapes = ([tuple(x.shape) for x in t] if isinstance(t, (list, tuple))

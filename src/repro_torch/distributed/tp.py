@@ -14,7 +14,14 @@ forward's conjugate:
 * ``gather_data``: a parameter's FSDP shards all-gathered over the
   ``data`` axis forward, the gradient reduce-scattered back into the
   rank's shard (or, where every rank computed the whole batch, its slice)
-  backward.
+  backward;
+* ``gather_rows``: activation rows that each rank reads differently (the
+  MoE capacity slots' token rows) all-gathered forward, the ranks'
+  gradients summed and cut to this rank's rows (a reduce-scatter)
+  backward;
+* ``reduce_rows``: partial sums of every rank's rows summed and cut to
+  this rank's rows (a reduce-scatter) forward, the gradients all-gathered
+  backward (in the dtype the caller says holds them exactly).
 
 A column-parallel matmul takes ``copy(x)``: every rank holds the same
 ``x``, and the gradient reaching it from the rank's columns is one rank's
@@ -156,6 +163,28 @@ class _GatherData(torch.autograd.Function):
         return out.div_(n).to(grad.dtype), None, None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(x, 0, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, 0, ctx.group), None
+
+
+class _ReduceRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, grad_dtype):
+        ctx.group, ctx.grad_dtype = group, grad_dtype
+        return _reduce_scatter(x, 0, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad.to(ctx.grad_dtype), 0, ctx.group).to(grad.dtype), None, None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -211,6 +240,21 @@ def gather_data(x: torch.Tensor, dim: int, group, over=None) -> torch.Tensor:
     split (``over`` None): this rank's slice of the gradient, which every
     rank computed whole."""
     return _GatherData.apply(x, _dim(x, dim), group, over)
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' rows ``x`` concatenated along dim 0 in rank order; the
+    gradient the sum of the ranks' gradients, cut to this rank's rows."""
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+def reduce_rows(x: torch.Tensor, group, grad_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (rows of every rank, in rank order) summed over ``group`` and
+    cut to this rank's rows, in ``x``'s dtype; the gradient the ranks'
+    gradients gathered, moved as ``grad_dtype`` (for a gradient whose every
+    value that dtype holds exactly, as an fp32 sum's that is next cast to
+    bf16: the same values in fewer bytes)."""
+    return x if group is None else _ReduceRows.apply(x, group, grad_dtype)
 
 
 def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:

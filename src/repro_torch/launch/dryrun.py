@@ -41,8 +41,9 @@ experts by expert or hidden column, with their capacity slots split over
 ``data`` where the experts do not divide. The MoE router, the replicated
 leaves and attention over more than one block of queries whose heads do
 not divide stay whole on every rank. The collectives include the
-``model`` axis's all-reduces and all-to-alls and the capacity's
-all-to-alls over ``data``.
+``model`` axis's all-reduces and all-to-alls and the capacity's exchange
+over ``data`` (the token rows all-gathered, the partial outputs
+reduce-scattered).
 
 The roofline constants are the card's, not the reference's TPU's:
 NVIDIA's data sheet for the NVIDIA H100 80GB HBM3 (SXM) at its 700.00 W
@@ -166,7 +167,8 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
     ``ShapeConfig``) as rank 0 of a fake process group of ``world`` ranks,
     on the mesh ``make_mesh(device_type)`` builds over it, on ``meta``
     tensors; return the rank's argument bytes, peak live bytes, matmul
-    flops, op bytes and collectives."""
+    flops, op bytes and collectives (by kind, and call by call as
+    ``(mesh axis, kind, bytes)`` in the order issued)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.distributed.comm import CollectiveCounter
@@ -218,10 +220,12 @@ def trace_step(cfg, shape, world: int, make_mesh, fsdp: bool = False,
             live.hold(t for a in args for t in leaves(a))
             del args
             run()
+        axis = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
     return {"argument_size_in_bytes": int(arg_bytes), "peak_live_bytes": live.peak,
             "flops": float(fc.get_total_flops()), "op_bytes": int(traffic.bytes),
             "ops": traffic.ops, "collectives": dict(cc.bytes),
             "collective_calls": dict(cc.calls),
+            "collective_log": [(axis.get(g, g), k, n) for g, k, n in cc.log],
             "collective_bytes_total": int(cc.total_bytes)}
 
 

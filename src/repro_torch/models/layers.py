@@ -550,36 +550,63 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _capacity_group(E: int, C: int):
     """The ``data`` group over which ``moe`` splits its C capacity slots,
-    or None: under a batch split over ``data`` (and no ``pod`` axis of more
-    than one rank), where the experts do not divide over ``model`` and C
-    divides over ``data`` (the reference's ``cap_ax``)."""
+    or None: under a batch split over ``data`` of more than one rank (with
+    a ``pod`` axis of any size beside it), where the experts do not divide
+    over ``model`` and C divides over ``data`` (the reference's
+    ``cap_ax``)."""
     groups = _SPLIT_CTX[0]
     d = _mesh_axis_size("data")
-    if (not groups or d == 1 or _mesh_axis_size("pod") > 1
-            or E % _mesh_axis_size("model") == 0 or C % d):
+    if not groups or d == 1 or E % _mesh_axis_size("model") == 0 or C % d:
         return None
     return groups[-1]                    # the innermost axis: data
 
 
-def _dispatch(eb: torch.Tensor, group) -> torch.Tensor:
-    """The rank's block of capacity slots (El, C/d, D) of every data rank's
-    buffer (El, C, D): the buffers cut along C and exchanged, the d blocks
-    received summed (each slot is filled on one rank only, so the sum is
-    exact)."""
-    d = tp.size(group)
-    El, C, D = eb.shape
-    parts = eb.reshape(El, d, C // d, D).transpose(0, 1)      # (d, El, C/d, D)
-    return tp.all_to_all(parts, 0, 0, group).sum(0)
+def _experts(params, eb: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on their buffers ``eb`` (El, slots, D)."""
+    h = F.silu(torch.bmm(eb, params["w_gate"]))
+    h = h * torch.bmm(eb, params["w_up"])
+    return torch.bmm(h, params["w_down"])
 
 
-def _collect(out_e: torch.Tensor, group) -> torch.Tensor:
-    """Every data rank's block (El, C/d, D) as the whole (El, C, D): d copies
-    of the rank's block sent, one to each rank, so that the gradient of each
-    rank's reading comes back to the block's owner and is summed there."""
-    d = tp.size(group)
-    El, Cd, D = out_e.shape
-    got = tp.all_to_all(out_e.unsqueeze(0).expand(d, El, Cd, D), 0, 0, group)
-    return got.transpose(0, 1).reshape(El, d * Cd, D)
+def _dispatch(rows: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+              Cb: int, El: int, K: int, by_index: bool) -> torch.Tensor:
+    """The rank's block (El, Cb, D) of capacity slots: each slot holds the
+    row of ``rows`` (K assignments a row, in row order) whose assignment
+    (``expert``, ``slot``: its slot in the block, or ``Cb`` where it has
+    none here) it was given, and zeros where none was. ``by_index``: a
+    scatter of row indices and a gather of the rows (the reference's form
+    at T >= 4096); else a scatter of the payload."""
+    D = rows.shape[1]
+    dev = rows.device
+    if by_index:
+        tok = torch.arange(expert.shape[0], device=dev) // K     # source row
+        slot_tok = torch.full((El, Cb + 1), rows.shape[0], dtype=torch.int64, device=dev)
+        slot_tok[expert, slot] = tok
+        pad = torch.cat([rows, torch.zeros((1, D), dtype=rows.dtype, device=dev)])
+        return pad[slot_tok[:, :Cb]]
+    buf = torch.zeros((El, Cb + 1, D), dtype=rows.dtype, device=dev)
+    buf[expert, slot] = torch.repeat_interleave(rows, K, dim=0)
+    return buf[:, :Cb]
+
+
+def _collect(out_e: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+             mine: torch.Tensor, gates: torch.Tensor, K: int, group) -> torch.Tensor:
+    """The rows' outputs (T, D) in ``out_e``'s dtype: the slot outputs
+    ``out_e`` (El, Cb, D) read by the assignments ``mine`` of the block,
+    weighed by their ``gates`` (in ``out_e``'s dtype) and summed over each
+    row's K. Where ``group`` is None that sum is the row's output (torch sums
+    the K terms in fp32 and rounds once). Else the rows are those of every
+    rank of ``group``: their sums stay fp32 partials, summed over ``group``
+    (each rank keeping its own rows) and rounded once, as the one-device
+    call rounds (the other ranks' terms are exact zeros); the gradient goes
+    back in ``out_e``'s dtype, which holds it exactly."""
+    D = out_e.shape[2]
+    got = out_e[expert, torch.clamp(slot, max=out_e.shape[1] - 1)]  # (T*K, D)
+    got = got.masked_fill(~mine[:, None], 0.0) * gates.reshape(-1)[:, None]
+    if group is None:
+        return got.reshape(-1, K, D).sum(dim=1)
+    part = got.float().reshape(-1, K, D).sum(1)
+    return tp.reduce_rows(part, group, out_e.dtype).to(out_e.dtype)
 
 
 def moe(params, x, cfg) -> torch.Tensor:
@@ -595,10 +622,16 @@ def moe(params, x, cfg) -> torch.Tensor:
     tokens; it runs its block of experts where they are split over
     ``model`` (E divides), else every expert on its columns of the hidden
     width, and the combined output is summed over ``model``. Where the
-    experts do not divide and C divides over ``data`` (``_capacity_group``),
-    data rank r runs the experts on slots [r C/d, (r+1) C/d) only: the
-    buffers go to the slots' ranks by an all-to-all over ``data``
-    (``_dispatch``), and the outputs come back by another (``_collect``).
+    experts do not divide and C divides over ``data`` (``_capacity_group``,
+    with or without a ``pod`` axis), data rank r runs the experts on slots
+    [r C/d, (r+1) C/d) only: the token rows of its pod's d data shares come
+    to it by one all-gather over ``data`` (``tp.gather_rows``, the gates
+    beside them), it fills its block from the assignments of those tokens
+    (``_dispatch``; a slot of another pod's token stays zero, and that
+    pod's rank of the same data index fills it), and the weighted outputs
+    go back as fp32 partial sums of the pod's tokens, reduce-scattered
+    over ``data`` (``_collect``). No rank builds, sends or receives an
+    (El, C, D) buffer there.
     """
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
@@ -633,44 +666,36 @@ def moe(params, x, cfg) -> torch.Tensor:
     pos_sorted = torch.arange(all_expert.shape[0], device=dev) - starts[sorted_exp]
     slot = torch.zeros(all_expert.shape, dtype=torch.int64, device=dev)
     slot[sorted_idx] = pos_sorted
-    slot = slot[share * A : (share + 1) * A]                  # this share's
-    keep = slot < C
-    # dropped assignments land in dump column C
-    wslot = torch.where(keep, slot, C)
-    # the rank's experts: all of them, or its block of E/m under EP (the
-    # assignments to other ranks' experts dumped in column C)
-    El = params["w_gate"].shape[0]
-    e0 = tp.rank(g) * El if ep else 0
-    mine, own_expert, own_slot = keep, flat_expert, wslot
-    if ep:
-        here = (flat_expert >= e0) & (flat_expert < e0 + El)
-        mine = keep & here
-        own_expert = torch.where(here, flat_expert - e0, 0)
-        own_slot = torch.where(here, wslot, C)
-    if T_all >= 4096:
-        # scatter of token indices, then a gather of their rows
-        assign_tok = torch.arange(A, device=dev) // K         # source token
-        slot_tok = torch.full((El, C + 1), T, dtype=torch.int64, device=dev)
-        slot_tok[own_expert, own_slot] = assign_tok
-        xt_pad = torch.cat([xe, torch.zeros((1, D), dtype=x.dtype, device=dev)])
-        eb = xt_pad[slot_tok[:, :C]]                          # (El, C, D)
-    else:
-        # decode-sized T: scatter the payload directly
-        src = torch.repeat_interleave(xe, K, dim=0)           # (T*K, D)
-        buf = torch.zeros((El, C + 1, D), dtype=x.dtype, device=dev)
-        buf[own_expert, own_slot] = src
-        eb = buf[:, :C]
     cap = _capacity_group(E, C)
+    El = params["w_gate"].shape[0]
     if cap is not None:
-        eb = _dispatch(eb, cap)                               # (El, C/d, D)
-    h = F.silu(torch.bmm(eb, params["w_gate"]))
-    h = h * torch.bmm(eb, params["w_up"])
-    out_e = torch.bmm(h, params["w_down"])                    # as eb
-    if cap is not None:
-        out_e = _collect(out_e, cap)                          # (El, C, D)
-    gathered = out_e[own_expert, torch.clamp(slot, max=C - 1)]  # (T*K, D)
-    gathered = gathered.masked_fill(~mine[:, None], 0.0)
-    weighted = gathered * gate_vals.reshape(-1)[:, None].to(x.dtype)
-    combined = weighted.reshape(T, K, D).sum(dim=1)
+        # the rank's C/d slots, filled from the rows of its pod's d shares
+        # (the gates as x's dtype beside them): no expert is split over
+        # model here; a slot of another pod's token stays zero
+        d = tp.size(cap)
+        Cb = C // d
+        c0 = tp.rank(cap) * Cb
+        rows = tp.gather_rows(torch.cat([xe, gate_vals.to(x.dtype)], 1), cap)
+        pod = slice(share // d * d * A, (share // d + 1) * d * A)
+        expert, slot = all_expert[pod], slot[pod]
+        mine = (slot >= c0) & (slot < c0 + Cb)
+        slot = torch.where(mine, slot - c0, Cb)                  # else dump column Cb
+        xe, gates = rows[:, :D], rows[:, D:]
+    else:
+        # this share's assignments; dropped ones land in dump column C, as
+        # do, under EP, those to other ranks' experts (the rank's block of E/m)
+        Cb, expert, slot = C, flat_expert, slot[share * A : (share + 1) * A]
+        mine = slot < C
+        slot = torch.where(mine, slot, C)
+        if ep:
+            e0 = tp.rank(g) * El
+            here = (flat_expert >= e0) & (flat_expert < e0 + El)
+            mine = mine & here
+            expert = torch.where(here, flat_expert - e0, 0)
+            slot = torch.where(here, slot, C)
+        gates = gate_vals.to(x.dtype)
+    eb = _dispatch(xe, expert, slot, Cb, El, K, T_all >= 4096)
+    out_e = _experts(params, eb)                                 # (El, Cb, D)
+    combined = _collect(out_e, expert, slot, mine, gates, K, cap)
     # the rank's experts' (or hidden columns') share of every token's output
     return tp.reduce(combined, g).reshape(B, S, D)

@@ -11,6 +11,7 @@ timeout is killed and fails its test. Rank 0's results travel back as
 
 from __future__ import annotations
 
+import math
 import multiprocessing as mp
 import os
 import time
@@ -121,6 +122,32 @@ def batches(cfg, steps: int, batch: int = BATCH) -> list[dict]:
             for s in range(steps)]
 
 
+def host_mesh(shape: tuple):
+    """A ``(data, model)`` or ``(pod, data, model)`` mesh of gloo ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def share_index(mesh) -> int:
+    """The rank's share of a batch split over the data axes (outer axis
+    major, as ``batch_specs`` places it)."""
+    from repro_torch.distributed.sharding import dp_axes
+
+    coord, names = mesh.get_coordinate(), list(mesh.mesh_dim_names)
+    index = 0
+    for a in dp_axes(mesh):
+        index = index * mesh.shape[names.index(a)] + coord[names.index(a)]
+    return index
+
+
+def axis_log(cc, mesh) -> list:
+    """A collective counter's calls in order, ``(mesh axis, kind, bytes)``."""
+    axis = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+    return [(axis.get(g, g), k, n) for g, k, n in cc.log]
+
+
 def by_axis(cc, mesh) -> dict:
     """A collective counter's calls by ``(mesh axis, kind)`` and its
     all-gathers' result shapes by axis, for the axes of ``mesh``."""
@@ -135,8 +162,6 @@ def train_worker(rank, world, out_dir, cfg, jobs):
     ``state_shardings`` and trained ``steps`` steps; rank 0 saves the
     losses and the whole state (gathered) after each step, and with ``count`` the
     collectives of the first step (the same hook the dry-run reads)."""
-    from torch.distributed.device_mesh import init_device_mesh
-
     from repro_torch.checkpoint import ckpt
     from repro_torch.distributed.comm import CollectiveCounter
     from repro_torch.distributed.sharding import place_tree
@@ -147,7 +172,7 @@ def train_worker(rank, world, out_dir, cfg, jobs):
 
     for name, shape, remat, q8, fsdp, steps, count in jobs:
         opt = AdamWConfig(quantized_moments=q8)
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        mesh = host_mesh(shape)
         sh = state_shardings(make_abstract_state(cfg, opt), mesh, cfg, fsdp)
         state = place_tree(initial_state(cfg, opt), sh)
         step = make_mesh_train_step(cfg, opt, mesh, sh, remat=remat)
@@ -156,7 +181,8 @@ def train_worker(rank, world, out_dir, cfg, jobs):
             if count and i == 0:
                 with CollectiveCounter() as cc:
                     state, metrics = step(state, b)
-                counted = {"calls": dict(cc.calls), "bytes": dict(cc.bytes)}
+                counted = {"calls": dict(cc.calls), "bytes": dict(cc.bytes),
+                           "log": axis_log(cc, mesh)}
             else:
                 state, metrics = step(state, b)
             losses.append(float(metrics["loss"]))
@@ -585,21 +611,19 @@ def serve_steps(cfg, mesh, placed, params_sharded=(), count_flops=False):
 
 
 def tp_worker(rank, world, out_dir, name, cfg, shapes):
-    """For each ``(data, model)`` in ``shapes``: the parameters placed by
-    ``param_shardings``, :func:`serve_steps` with the flops of every
+    """For each ``(data, model)`` or ``(pod, data, model)`` in ``shapes``:
+    the parameters placed by ``param_shardings``, :func:`serve_steps` with the flops of every
     ``model``-sharded leaf counted, the gradients of one batch (each
     replicated leaf's largest difference from the other ranks of its
     ``model`` group), then two train steps of the state placed by
     ``state_shardings``, under the collective counter. Every rank saves its
-    prefill logits, data index, flops, gathers over ``model`` and gradient
+    prefill logits, share index, flops, gathers over ``model`` and gradient
     differences; rank 0 the decode logits, the cache, the losses and the
     state, gathered."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.distributed.comm import CollectiveCounter
-    from repro_torch.distributed.sharding import (dp_axes, param_shardings,
-                                                  place_tree, use_mesh)
+    from repro_torch.distributed.sharding import param_shardings, place_tree, use_mesh
     from repro_torch.models import layers
     from repro_torch.models.model import build_params
     from repro_torch.optim.adamw import AdamWConfig
@@ -610,8 +634,8 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
     from repro_torch.tree import leaves_with_paths, tree_map
 
     for shape in shapes:
-        tag = f"{name}-{shape[0]}x{shape[1]}"
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        tag = f"{name}-{'x'.join(map(str, shape))}"
+        mesh = host_mesh(shape)
         group = mesh.get_group("model")
         params = build_params(cfg, seed=0, device="cpu")
         sh = param_shardings(params, mesh, cfg)
@@ -641,10 +665,8 @@ def tp_worker(rank, world, out_dir, name, cfg, shapes):
                 state, metrics = step(state, b)
                 losses.append(float(metrics["loss"]))
         whole_state = tree_map(lambda t: t.full_tensor().clone(), state)
-        coord = mesh.get_coordinate()
-        names = list(mesh.mesh_dim_names)
         mname = group.group_name
-        torch.save({"logits": logits, "dp_index": coord[names.index(dp_axes(mesh)[0])],
+        torch.save({"logits": logits, "dp_index": share_index(mesh),
                     "flops": flops, "other_flops": other, "spread": spread,
                     "serve_gathers": [s for g, s in cc.gathered if g == mname],
                     "train_gathers": [s for g, s in tc.gathered if g == mname],
@@ -660,25 +682,21 @@ STEPS_TP = 2
 
 
 def tp_prefill_worker(rank, world, out_dir, cases):
-    """For each ``(name, cfg, npz, (data, model))``: the reference's
+    """For each ``(name, cfg, npz, mesh shape)``: the reference's
     parameters (``npz`` of its leaves by path) converted, placed on that
     mesh and prefilled as :func:`serve_steps` does; every rank saves its
-    logits (its data share's rows) and data index."""
-    from torch.distributed.device_mesh import init_device_mesh
-
-    from repro_torch.distributed.sharding import dp_axes, param_shardings, place_tree
+    logits (its data share's rows) and share index."""
+    from repro_torch.distributed.sharding import param_shardings, place_tree
     from repro_torch.models.model import demo_batch
     from repro_torch.train.mesh_step import make_mesh_prefill_step
 
     for name, cfg, npz, shape in cases:
-        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        mesh = host_mesh(shape)
         params = load_reference_params(npz)
         placed = place_tree(params, param_shardings(params, mesh, cfg))
         batch = demo_batch(cfg, BATCH, SEQ, kind="prefill", seed=1, device="cpu")
         logits, _ = make_mesh_prefill_step(cfg, mesh, max_seq=SEQ)(placed, batch)
-        coord = mesh.get_coordinate()
-        torch.save({"logits": logits,
-                    "dp_index": coord[list(mesh.mesh_dim_names).index(dp_axes(mesh)[0])]},
+        torch.save({"logits": logits, "dp_index": share_index(mesh)},
                    os.path.join(out_dir, f"{name}-ref-prefill-rank{rank}.pt"))
 
 
@@ -795,3 +813,97 @@ def q8_train_worker(rank, world, out_dir, cfg):
     with CollectiveCounter() as cc:
         step(state, batches(cfg, 1)[0])
     torch.save(by_axis(cc, mesh), os.path.join(out_dir, f"q8-train-rank{rank}.pt"))
+
+
+# ------------------------------------------------ the MoE capacity over data
+def moe_case(cfg, batch: int, seq: int, seed: int) -> dict:
+    """A MoE layer's whole parameters, input and output weights (the loss
+    is the sum of the output times ``probe``), made from ``seed``: the
+    parameters by ``init_moe`` on a generator, x and probe with numpy."""
+    import numpy as np
+
+    from repro_torch.models import layers
+
+    dtype = getattr(torch, cfg.dtype)
+    params = layers.init_moe(torch.Generator().manual_seed(seed), cfg, dtype)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((batch, seq, cfg.d_model), np.float32)).to(dtype)
+    probe = torch.from_numpy(rng.standard_normal((batch, seq, cfg.d_model), np.float32))
+    return {"params": params, "x": x, "probe": probe}
+
+
+def model_columns(params: dict, j: int, m: int) -> dict:
+    """Model rank j's shard of a MoE layer whose experts do not divide over
+    ``m``: every expert's hidden columns [j F/m, (j+1) F/m), the router
+    whole."""
+    F = params["w_gate"].shape[2]
+    cols = slice(j * F // m, (j + 1) * F // m)
+    return {"router": params["router"], "w_gate": params["w_gate"][:, :, cols],
+            "w_up": params["w_up"][:, :, cols], "w_down": params["w_down"][:, cols, :]}
+
+
+def moe_layer_worker(rank, world, out_dir, cases):
+    """For each case ``(name, shape, cfg, batch, seq, seed)``: ``layers.moe``
+    alone on a ``(data, model)`` or ``(pod, data, model)`` mesh under
+    ``split_batch`` over the data axes, on the rank's share of the batch
+    rows and its model rank's hidden columns (:func:`model_columns`) of
+    :func:`moe_case`'s layer, forward and backward of the share's loss,
+    under the collective counter and :class:`WeightFlops`. Every rank
+    saves its output, share and model index, the gradients of its x share
+    and of its parameter shard, the flops by leaf and the collectives
+    ``(axis, kind, bytes)``."""
+    from repro_torch.distributed.comm import CollectiveCounter
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.models import layers
+    from repro_torch.train.mesh_step import _dp_groups
+
+    for name, shape, cfg, batch, seq, seed in cases:
+        mesh = host_mesh(shape)
+        case = moe_case(cfg, batch, seq, seed)
+        n = math.prod(shape[:-1])
+        i, j = share_index(mesh), mesh.get_local_rank("model")
+        rows = slice(i * batch // n, (i + 1) * batch // n)
+        local = {k: t.clone().requires_grad_() for k, t in
+                 model_columns(case["params"], j, shape[-1]).items()}
+        x = case["x"][rows].clone().requires_grad_()
+        weights = {t.untyped_storage().data_ptr(): k for k, t in local.items()}
+        with use_mesh(mesh), layers.split_batch(_dp_groups(mesh)), \
+                CollectiveCounter() as cc, WeightFlops(weights) as wf:
+            out = layers.moe(local, x, cfg)
+            (out.float() * case["probe"][rows]).sum().backward()
+        torch.save({"out": out.detach(), "share": i, "model": j, "x_grad": x.grad,
+                    "grads": {k: t.grad for k, t in local.items()},
+                    "flops": dict(wf.flops), "log": axis_log(cc, mesh)},
+                   os.path.join(out_dir, f"{name}-rank{rank}.pt"))
+
+
+def bf16_serve_worker(rank, world, out_dir, cfg, shape):
+    """A bf16 config's parameters placed on ``shape`` by ``param_shardings``,
+    :func:`serve_steps` and the loss of one train batch on the rank's share
+    (under ``split_batch``); every rank saves its prefill logits and share
+    index, rank 0 the decode logits, the cache gathered and the loss
+    averaged over the shares."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import param_shardings, place_tree, use_mesh
+    from repro_torch.models import layers
+    from repro_torch.models.model import build_params, loss_fn
+    from repro_torch.train.mesh_step import _dp_groups, _share, local
+    from repro_torch.tree import tree_map
+
+    mesh = host_mesh(shape)
+    params = build_params(cfg, seed=0, device="cpu")
+    placed = place_tree(params, param_shardings(params, mesh, cfg))
+    logits, steps, cache, _, _, _ = serve_steps(cfg, mesh, placed)
+    whole = tree_map(lambda t: t.full_tensor().clone(), cache)
+    share, split = _share(batches(cfg, 1)[0], mesh)
+    assert split
+    with torch.no_grad(), use_mesh(mesh), layers.split_batch(_dp_groups(mesh)):
+        loss = loss_fn(tree_map(local, placed), share, cfg).float()
+    for g in _dp_groups(mesh):
+        dist.all_reduce(loss, group=g)
+    torch.save({"logits": logits, "dp_index": share_index(mesh)},
+               os.path.join(out_dir, f"bf16-rank{rank}.pt"))
+    if rank == 0:
+        torch.save({"steps": steps, "cache": whole, "loss": float(loss) / math.prod(shape[:-1])},
+                   os.path.join(out_dir, "bf16.pt"))

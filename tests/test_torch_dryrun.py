@@ -14,9 +14,13 @@
   remat's recompute and two in the backward, 2 T D E flops each) every
   rank computes whole; for a yi-9b of one KV head (the rank's query heads
   against the KV head built whole) and a gemma2-2b of 6 heads (the rank's
-  quarter of the query sequence with every head) everything. At (2, 2), a
-  mixtral of 3 experts (each expert's width over ``model``, its capacity
-  slots over ``data``) counts alike too.
+  quarter of the query sequence with every head) everything. At (2, 2)
+  and at (pod 2, data 2, model 2), a mixtral of 3 experts (each expert's
+  width over ``model``, its capacity slots over ``data``) counts alike
+  too, call for call (axis, kind and bytes in the order issued): its
+  capacity exchange over ``data`` is the pod's token rows all-gathered
+  and the partial outputs reduce-scattered, and no collective over
+  ``data`` carries an (E, C, D) buffer.
 * The mesh prefill and decode steps the dry-run traces for prefill and
   decode cells give, on a real gloo (2, 2) run, the one-device logits and
   cache within 1e-4 of the largest value (the whole-model bound of
@@ -46,6 +50,7 @@ import os
 
 import pytest
 import torch
+from torch.distributed.device_mesh import init_device_mesh
 
 from _torch_dist import (BATCH, SEQ, SEQ_MAX, run_ranks, seq_cache_worker, serve_worker,
                          smoke_cfg, train_worker)
@@ -94,26 +99,46 @@ def test_dryrun_of_the_tensor_parallel_step(tmp_path):
     ("yi-9b", {"n_kv_heads": 1}, (1, 4)),                     # the rank's query heads
     ("gemma2-2b", {"n_heads": 6, "n_kv_heads": 3}, (1, 4)),  # the rank's queries
     ("mixtral-8x22b", {"n_experts": 3}, (2, 2)),              # the rank's capacity slots
-], ids=["query-heads", "query-sequence", "capacity"])
+    ("mixtral-8x22b", {"n_experts": 3}, (2, 2, 2)),           # and beside a pod axis
+], ids=["query-heads", "query-sequence", "capacity", "capacity-pod"])
 def test_dryrun_of_work_on_a_ranks_share(arch, changes, mesh, tmp_path):
     cfg = smoke_cfg(arch, 512, **changes)
-    d, m = mesh
+    pod, d, m = mesh if len(mesh) == 3 else (1, *mesh)
     H, K, E = cfg.n_heads, cfg.n_kv_heads, cfg.n_experts
     C = max(8, min(math.ceil(BATCH * SEQ * cfg.top_k / max(E, 1) * cfg.capacity_factor),
                    BATCH * SEQ))
     assert {"yi-9b": H % m == 0 and K % m, "gemma2-2b": H % m and SEQ % m == 0 and SEQ > m,
             "mixtral-8x22b": E % m and C % d == 0}[arch]
     jobs = [("tp", mesh, True, False, False, 1, True)]
-    out = run_ranks(4, train_worker, (cfg, jobs), tmp_path)
+    out = run_ranks(pod * d * m, train_worker, (cfg, jobs), tmp_path)
     real = torch.load(os.path.join(out, "tp.pt"), weights_only=False)["counted"]
     shape = ShapeConfig("smoke", SEQ, BATCH, "train")
-    traced = {n: dryrun.trace_step(cfg, shape, n * d,
-                                   lambda dt, n=n: make_host_mesh(d, n, device_type=dt))
+    names = ("pod", "data", "model") if pod > 1 else ("data", "model")
+    traced = {n: dryrun.trace_step(cfg, shape, pod * d * n,
+                                   lambda dt, n=n: init_device_mesh(
+                                       dt, (pod, d, n)[-len(names):], mesh_dim_names=names))
               for n in (1, m)}
     assert traced[m]["collective_calls"] == real["calls"]
     assert traced[m]["collectives"] == real["bytes"]
-    if arch != "yi-9b":  # there and back, forward and backward, a layer
+    assert traced[m]["collective_log"] == real["log"]  # call for call, axis and bytes
+    if arch == "gemma2-2b":  # there and back, forward and backward, a layer
         assert real["calls"]["all-to-all"] >= 4 * cfg.n_layers
+    if arch == "mixtral-8x22b":
+        # the capacity's exchange over data, a MoE layer: the rows (and
+        # gates) of the pod's d shares gathered in the forward and in
+        # remat's recompute and reduce-scattered back in the backward; the
+        # partial outputs reduce-scattered in the forward (the recompute
+        # stops before them: nothing after them is saved), their gradients
+        # gathered; and no collective over data carries an (E, C, D) buffer
+        T, D = BATCH * SEQ // (pod * d), cfg.d_model
+        on_data = [(k, n) for a, k, n in real["log"] if a == "data"]
+        for kind, nbytes, per_layer in [("all-gather", d * T * (D + cfg.top_k) * 4, 2),
+                                        ("reduce-scatter", T * (D + cfg.top_k) * 4, 1),
+                                        ("reduce-scatter", T * D * 4, 1),
+                                        ("all-gather", d * T * D * 4, 1)]:
+            assert on_data.count((kind, nbytes)) == per_layer * cfg.n_layers, (kind, nbytes)
+        assert not [n for _, n in on_data if n == E * C * D * 4], on_data
+        assert "all-to-all" not in real["calls"]
     if d == 1:  # every weight is split over model, and so is attention's work
         assert traced[m]["flops"] * m == traced[1]["flops"]
     else:  # below 1/m of (d, 1)'s: the experts there run every slot

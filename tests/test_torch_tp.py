@@ -26,7 +26,9 @@ Spawned gloo ranks (``tests/_torch_dist.py``) run each config at meshes
   so are the flops of the ops that read no leaf (the scores and PV
   products), and no rank gathers q of every head over every query; at
   (2, 2), where the MoE capacity splits over ``data`` (``CAPACITY``), the
-  experts' flops are 1/4 of the one-device run's;
+  experts' flops are 1/4 of the one-device run's, and so they are for
+  mixtral with 3 experts on eight ranks of a (pod 2, data 2, model 2)
+  mesh, where the capacity splits over ``data`` beside the ``pod`` axis;
 * every replicated leaf's gradient is the same on each rank of a ``model``
   group.
 
@@ -44,7 +46,8 @@ and 1 (the queries), qwen1.5-4b with 6 heads and 6 KV heads (the queries
 at m = 4) and mixtral with 3 experts (the capacity over ``data`` at
 (2, 2)). The prefill of each case of ``REF_CASES`` on its mesh also
 equals the reference's jitted prefill under ``use_mesh`` on forced host
-devices, on its own parameters converted, within 1e-4.
+devices, on its own parameters converted, within 1e-4 (mixtral with 3
+experts also on a (pod 2, data 2, model 2) mesh of eight).
 """
 
 import json
@@ -207,6 +210,58 @@ def split_of(cfg, case: str, d: int, m: int) -> tuple[str | None, bool]:
     return layout, cap
 
 
+def check_mesh(case: str, cfg, want: dict, shape: tuple, out: str) -> None:
+    """Hold the ranks of ``shape`` ((data, model) or (pod, data, model);
+    their files in ``out``) to the one-device run ``want``."""
+    pod, d, m = shape if len(shape) == 3 else (1, *shape)
+    tag = f"{case}-{'x'.join(map(str, shape))}"
+    sizes = {"pod": pod, "data": d, "model": m} if pod > 1 else {"data": d, "model": m}
+    sharded = model_sharded(param_shardings(want["params"], sizes, cfg))
+    assert sharded, tag
+    bad = forbidden_shapes(want["params"], sharded)
+    rows = BATCH // (pod * d)
+    layout, cap = split_of(cfg, case, d, m)
+    if layout:  # no rank builds q of every head over every query
+        bad.add((rows, SEQ, cfg.n_heads * cfg.hd))
+    for r in range(pod * d * m):
+        got = torch.load(os.path.join(out, f"{tag}-rank{r}.pt"), weights_only=False)
+        i = got["dp_index"]
+        close(got["logits"], want["logits"][i * rows:(i + 1) * rows],
+              f"{tag} prefill logits rank {r}")
+        for what in ("serve_gathers", "train_gathers"):
+            hits = [s for s in got[what] if tuple(s) in bad]
+            assert not hits, f"{tag} rank {r}: a model-sharded leaf gathered ({what}) {hits}"
+        assert got["model_calls"], f"{tag}: no collective over model"
+        for path, spread in got["spread"].items():
+            assert spread == 0.0, f"{tag} rank {r}: grad of {path} differs by {spread}"
+        if d == 1:
+            assert set(got["flops"]) <= sharded, tag
+            for path in sharded:
+                n1 = want["flops"].get(path, 0)
+                assert got["flops"].get(path, 0) * m == n1, \
+                    f"{tag} rank {r} {path}: {got['flops'].get(path, 0)} x {m} != {n1}"
+        if layout:  # the scores and PV products of the rank's share
+            assert got["other_flops"] * m == want["other_flops"] > 0, \
+                f"{tag} rank {r}: attention {got['other_flops']} x {m} != {want['other_flops']}"
+        if cap:  # the experts on the rank's capacity slots and columns
+            experts = [p for p in want["flops"] if "/ffn/w_" in p]
+            assert experts and experts == [p for p in experts if p in sharded], tag
+            for path in experts:
+                assert got["flops"][path] * d * m == want["flops"][path], \
+                    f"{tag} rank {r} {path}: {got['flops'][path]} x {d * m}"
+    got = torch.load(os.path.join(out, f"{tag}.pt"), weights_only=False)
+    for i, (a, b) in enumerate(zip(got["steps"], want["steps"])):
+        close(a, b, f"{tag} decode step {i + 1} logits")
+    close_tree(got["cache"], want["cache"], f"{tag} cache")
+    for a, b in zip(got["losses"], want["losses"]):
+        assert abs(a - b) <= BOUND * abs(b), (tag, got["losses"], want["losses"])
+    assert int(got["state"]["step"]) == int(want["state"]["step"])
+    close_tree(got["state"]["params"], want["state"]["params"], f"{tag} params",
+               want["allowance"])
+    close_tree(got["state"]["opt"]["m"], want["state"]["opt"]["m"], f"{tag} m")
+    close_tree(got["state"]["opt"]["v"], want["state"]["opt"]["v"], f"{tag} v")
+
+
 @pytest.mark.parametrize("case", list(CONFIGS))
 def test_tensor_parallel_steps_are_the_one_device_run(case, tmp_path):
     arch, vocab, changes = CONFIGS[case]
@@ -214,53 +269,22 @@ def test_tensor_parallel_steps_are_the_one_device_run(case, tmp_path):
     want = one_device(cfg)
     out2 = run_ranks(2, tp_worker, (case, cfg, [(1, 2)]), tmp_path)
     out4 = run_ranks(4, tp_worker, (case, cfg, [(1, 4), (2, 2)]), tmp_path)
-    for (d, m), out in (((1, 2), out2), ((1, 4), out4), ((2, 2), out4)):
-        tag = f"{case}-{d}x{m}"
-        sharded = model_sharded(param_shardings(want["params"], {"data": d, "model": m}, cfg))
-        assert sharded, tag
-        bad = forbidden_shapes(want["params"], sharded)
-        rows = BATCH // d
-        layout, cap = split_of(cfg, case, d, m)
-        if layout:  # no rank builds q of every head over every query
-            bad.add((rows, SEQ, cfg.n_heads * cfg.hd))
-        for r in range(d * m):
-            got = torch.load(os.path.join(out, f"{tag}-rank{r}.pt"), weights_only=False)
-            i = got["dp_index"]
-            close(got["logits"], want["logits"][i * rows:(i + 1) * rows],
-                  f"{tag} prefill logits rank {r}")
-            for what in ("serve_gathers", "train_gathers"):
-                hits = [s for s in got[what] if tuple(s) in bad]
-                assert not hits, f"{tag} rank {r}: a model-sharded leaf gathered ({what}) {hits}"
-            assert got["model_calls"], f"{tag}: no collective over model"
-            for path, spread in got["spread"].items():
-                assert spread == 0.0, f"{tag} rank {r}: grad of {path} differs by {spread}"
-            if d == 1:
-                assert set(got["flops"]) <= sharded, tag
-                for path in sharded:
-                    n1 = want["flops"].get(path, 0)
-                    assert got["flops"].get(path, 0) * m == n1, \
-                        f"{tag} rank {r} {path}: {got['flops'].get(path, 0)} x {m} != {n1}"
-            if layout:  # the scores and PV products of the rank's share
-                assert got["other_flops"] * m == want["other_flops"] > 0, \
-                    f"{tag} rank {r}: attention {got['other_flops']} x {m} != {want['other_flops']}"
-            if cap:  # the experts on the rank's capacity slots and columns
-                experts = [p for p in want["flops"] if "/ffn/w_" in p]
-                assert experts and experts == [p for p in experts if p in sharded], tag
-                for path in experts:
-                    assert got["flops"][path] * d * m == want["flops"][path], \
-                        f"{tag} rank {r} {path}: {got['flops'][path]} x {d * m}"
-        got = torch.load(os.path.join(out, f"{tag}.pt"), weights_only=False)
-        for i, (a, b) in enumerate(zip(got["steps"], want["steps"])):
-            close(a, b, f"{tag} decode step {i + 1} logits")
-        close_tree(got["cache"], want["cache"], f"{tag} cache")
-        for a, b in zip(got["losses"], want["losses"]):
-            assert abs(a - b) <= BOUND * abs(b), (tag, got["losses"], want["losses"])
-        assert int(got["state"]["step"]) == int(want["state"]["step"])
-        close_tree(got["state"]["params"], want["state"]["params"], f"{tag} params",
-                   want["allowance"])
-        close_tree(got["state"]["opt"]["m"], want["state"]["opt"]["m"], f"{tag} m")
-        close_tree(got["state"]["opt"]["v"], want["state"]["opt"]["v"], f"{tag} v")
+    for shape, out in (((1, 2), out2), ((1, 4), out4), ((2, 2), out4)):
+        check_mesh(case, cfg, want, shape, out)
     assert sum(want["flops"].values()) > 0
+
+
+def test_capacity_beside_a_pod_axis_is_the_one_device_run(tmp_path):
+    """``mixtral-e3`` on eight ranks of a (pod 2, data 2, model 2) mesh: the
+    capacity splits over ``data`` beside the ``pod`` axis (each rank runs
+    the experts on its C/2 slots and F/2 columns, 1/4 of the one-device
+    flops), and the steps are the one-device run's."""
+    case, shape = "mixtral-e3", (2, 2, 2)
+    arch, vocab, changes = CONFIGS[case]
+    cfg = smoke_cfg(arch, vocab, **changes)
+    assert split_of(cfg, case, *shape[1:])[1]
+    out = run_ranks(8, tp_worker, (case, cfg, [shape]), tmp_path)
+    check_mesh(case, cfg, one_device(cfg), shape, out)
 
 
 # ---------------------------------------------------------- the reference
@@ -272,14 +296,16 @@ REF_CASES = {"yi-9b": ("yi-9b", 512, {"n_kv_heads": 2}, (1, 4)),
              "gemma2-h6": ("gemma2-2b", 512, {"n_heads": 6, "n_kv_heads": 3}, (1, 4)),
              "gemma2-h3": ("gemma2-2b", 512, {"n_heads": 3, "n_kv_heads": 1}, (1, 2)),
              "qwen1.5-h6": ("qwen1.5-4b", 512, {"n_heads": 6, "n_kv_heads": 6}, (1, 4)),
-             "mixtral-e3": ("mixtral-8x22b", 512, {"n_experts": 3}, (2, 2))}
+             "mixtral-e3": ("mixtral-8x22b", 512, {"n_experts": 3}, (2, 2)),
+             "mixtral-e3-pod": ("mixtral-8x22b", 512, {"n_experts": 3}, (2, 2, 2))}
 
 
 @pytest.fixture(scope="module")
 def reference_prefill(tmp_path_factory):
-    """The reference's jitted prefill on each case's mesh of 4 forced host
-    devices (the first 2 for a (1, 2) mesh), its parameters (seed 0) saved
-    by path: {case: (npz path, logits)}."""
+    """The reference's jitted prefill on each case's mesh of 8 forced host
+    devices (the first 2 or 4 for a mesh of 2 or 4; a mesh of three dims
+    is (pod, data, model)), its parameters (seed 0) saved by path: {case:
+    (npz path, logits)}."""
     root = tmp_path_factory.mktemp("ref-tp")
     code = f"""
 import json
@@ -296,8 +322,8 @@ for name, (arch, vocab, changes, shape) in {REF_CASES!r}.items():
     cfg = replace(REGISTRY[arch].smoke(), dtype="float32", vocab_size=vocab, **changes)
     params = build_params(cfg, seed=0)
     batch = demo_batch(cfg, {BATCH}, {SEQ}, kind="prefill", seed=1)
-    mesh = Mesh(np.array(jax.devices()[:shape[0] * shape[1]]).reshape(shape),
-                ("data", "model"))
+    mesh = Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+                ("pod", "data", "model")[-len(shape):])
     with use_mesh(mesh):
         step = jax.jit(make_prefill_step(cfg, max_seq={SEQ}),
                        in_shardings=(param_shardings(params, mesh, cfg),
@@ -310,7 +336,7 @@ for name, (arch, vocab, changes, shape) in {REF_CASES!r}.items():
     out[name] = [npz, np.asarray(logits).tolist()]
 print(json.dumps(out))
 """
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=env, timeout=300)
@@ -323,14 +349,15 @@ def test_tensor_parallel_prefill_is_the_references(reference_prefill, tmp_path):
     by_world: dict = {}
     for name, (arch, vocab, changes, shape) in REF_CASES.items():
         cfg = smoke_cfg(arch, vocab, **changes)
-        split_of(cfg, name.removesuffix("-1x2").removesuffix("-1x4"), *shape)
-        by_world.setdefault(shape[0] * shape[1], []).append(
+        split_of(cfg, name.removesuffix("-1x2").removesuffix("-1x4").removesuffix("-pod"),
+                 *shape[-2:])
+        by_world.setdefault(math.prod(shape), []).append(
             (name, cfg, reference_prefill[name][0], shape))
     for world, cases in by_world.items():
         out = run_ranks(world, tp_prefill_worker, (cases,), tmp_path)
         for name, _, _, shape in cases:
             want = reference_prefill[name][1]
-            rows = BATCH // shape[0]
+            rows = BATCH // math.prod(shape[:-1])
             for r in range(world):
                 got = torch.load(os.path.join(out, f"{name}-ref-prefill-rank{r}.pt"))
                 i = got["dp_index"]
